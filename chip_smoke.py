@@ -1,24 +1,46 @@
 """Drive the PyTorch/CUDA port (vicasplat_tpu_torch) on one NVIDIA GPU.
 
-Phases, each printing one line with its seconds:
-  1. device: the card's name and power limit;
-  2. build: every kernel of the main path, by plain nvcc (kernels/build.py);
-  3. each kernel against its plain PyTorch version on the card, at the shapes
-     the main path gives it, with its time, the plain version's time and one
-     library call's time as a yardstick;
-  4. the flagship main path of bench.py: vicasplat_forward on 8 frames of
-     256^2 in bf16 (ViT-L encoder, 12-block mix decoder, DPT heads, SH
-     degree 4) from random weights made with a seeded torch.Generator, then
-     decoder_forward of 12 target views at 256^2; shapes, finiteness and
-     kernel launch counts are checked, then the two stages are timed;
-     one forward and one render then run under torch.profiler;
-  5. the same forward with K1 swapped for its plain version, compared.
+Phases, each printing lines with their seconds:
+  device    the card's name and power limit;
+  build     every kernel of the main paths by plain nvcc, one process per
+            source, all started together (kernels/build.py), with ptxas's
+            registers, shared memory and spills;
+  k1        K1 (flash attention) against its plain version at three shapes;
+  flagship  the default path of bench.py: vicasplat_forward on 8 frames of
+            256^2 in bf16 (ViT-L encoder, 12-block mix decoder, DPT heads,
+            SH degree 4) from random weights made with a seeded
+            torch.Generator, then decoder_forward of 12 target views of
+            256^2; shapes, finiteness and K1's launches are checked;
+  accel     the accelerator serving configuration on the same weights:
+            head_tail_backend="pallas" (K3) and RasterizeConfig(backend=
+            "pallas", binning="origin") (K2, K4); every kernel's launches
+            per forward + render are checked exactly;
+  k2/k3/k4  each kernel against its plain version on the inputs the
+            accelerator path gives it (and K2 also on a dense payload whose
+            pixels saturate, K4 also on random words), with its time, the
+            plain version's, one library call's where one exists, and the
+            bound of this run's inputs;
+  timing    both configurations in turns, medians of 5 after 2 warm-ups;
+  profile   one forward and one render of each under torch.profiler;
+  plain-k3  the accelerator forward against the same forward with K3's
+            plain version and against the default forward (noise floor);
+  render    K2 + K4 on a 1,000-splat scene on the card against the CPU;
+  grads     a wiring check of K2's autograd function on the card: its
+            forward (K2) against the plain forward of the same inputs, and
+            the gradients to means, opacities, a pose delta and a learnable
+            background (both backwards are the plain recompute);
+  plain-k1  the default forward with K1 swapped for its plain version.
 Then a JSON line of kernels, the nvidia-smi line, and the result line.
+Float32 convolutions run in full float32 (cudnn.allow_tf32 = False), since
+K3's plain version is the reference.
 
 Usage, from the repository root: python3 chip_smoke.py
 It needs one CUDA card; without one it exits non-zero and prints no result.
 """
+import dataclasses
+import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -33,9 +55,25 @@ FLASH_TOL = 2e-2
 # the float32 rasterizer on the card against the CPU: exp/log1p and matmul
 # sums in another order, far below one splat's 1/255 contribution
 RENDER_TOL = 1e-4
-H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM, 700 W
+# K2 stops a pixel once its transmittance is under 1e-4, its plain version
+# never: what it drops is at most 1e-4 of a splat's feature
+EXIT_T = 1e-4
+# K3 against its float32 plain version with the same roundings, relative
+# to the largest output: the two float32 sums run in other orders, so an
+# output (or an element of h) near a bf16 rounding midpoint may round one
+# ulp apart, at most 2^-7 = 7.8e-3 of the largest output
+TAIL_TOL = 1e-2
+# gradients through K2's recompute against the plain compositing: the same
+# function summed in other orders, relative to the largest entry
+GRAD_TOL = 1e-3
+H100_BF16_FLOPS = 989e12    # dense tensor-core peak, SXM, 700 W
+H100_F32_FLOPS = 67e12      # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12  # HBM3
+# float32 operations of one (pixel, splat) pair in K2: offsets 2, power 8,
+# alpha 4 (one exp), tests 2, weight and blend 9
+COMPOSITE_OPS = 25
 N_VIEWS = 12
+KERNELS = ("flash_attn", "bitonic_topk", "composite", "dpt_tail")
 
 
 def phase(name, t0, msg):
@@ -56,11 +94,24 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def bound(flops, rate, nbytes):
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def nvidia_smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def row_line(name, t0, label, r, tol):
+    phase(name, t0, f"{label}: max_abs_err {r['max_abs_err']:.3e} (tol {tol:.3e}) "
+          f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+          + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+          + f" bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
 
 
 def flash_phase(dev):
@@ -84,22 +135,155 @@ def flash_phase(dev):
         if not err < FLASH_TOL:
             raise AssertionError(f"K1 {label}: max abs err {err} >= {FLASH_TOL}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms = cuda_ms(lambda: flash_attention(q, k, v))
-        plain_ms = cuda_ms(lambda: attention_reference(q, k, v), iters=5)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         flops = 4.0 * b * h * sq * sk * 64
         nbytes = 2.0 * 64 * h * b * (2 * sq + 2 * sk)  # q, k, v in, o out
-        t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        ms = cuda_ms(lambda: flash_attention(q, k, v))
         rows[label] = dict(
             shape=f"q ({b}, {sq}, {h}, 64), k/v ({b}, {sk}, {h}, 64) bf16",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            max_abs_err=err, ms=ms,
+            plain_ms=cuda_ms(lambda: attention_reference(q, k, v), iters=5),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             tflops=flops / ms * 1e-9)
-        phase("k1", t0, f"{label}: max_abs_err {err:.3e} (tol {FLASH_TOL}) "
-              f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-              f"{lib_ms:.4f} bound_ms {rows[label]['bound_ms']:.4f} "
-              f"({rows[label]['tflops']:.1f} TFLOP/s)")
+        rows[label]["bound_ms"], rows[label]["bound_by"] = bound(
+            flops, H100_BF16_FLOPS, nbytes)
+        row_line("k1", t0, f"{label} ({rows[label]['tflops']:.1f} TFLOP/s)",
+                 rows[label], FLASH_TOL)
+    return rows
+
+
+def topk_phase(dev, flagship_words, keep):
+    """K4 on the flagship view's candidate words and on random full-range
+    words of the same shape: exact equality with torch.sort. The library
+    call is torch.sort of the same unsigned values held in int64."""
+    from vicasplat_tpu_torch.kernels import bitonic_topk, topk_reference
+    from vicasplat_tpu_torch.kernels.bitonic_topk import from_u32_bits
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(4)
+    rand = torch.randint(-2 ** 31, 2 ** 31, flagship_words.shape, generator=g,
+                         device=dev, dtype=torch.int32)
+    for label, w in (("flagship", flagship_words), ("random", rand)):
+        if not torch.equal(bitonic_topk(w, keep), topk_reference(w, keep)):
+            raise AssertionError(f"K4 {label}: differs from torch.sort")
+    w = flagship_words
+    values = from_u32_bits(w)
+    rows, m = w.shape
+    stages = int(math.log2(m)) * (int(math.log2(m)) + 1) // 2
+    r = dict(shape=f"({rows}, {m}) u32 words -> ({rows}, {keep})",
+             max_abs_err=0.0, ms=cuda_ms(lambda: bitonic_topk(w, keep)),
+             plain_ms=cuda_ms(lambda: topk_reference(w, keep)),
+             library_ms=cuda_ms(lambda: torch.sort(values, dim=1)))
+    # one compare and two selects a compare-exchange, at the table's 32-bit
+    # (non-tensor) rate; 4 bytes a word in and a kept word out
+    r["bound_ms"], r["bound_by"] = bound(3.0 * stages * rows * m / 2,
+                                         H100_F32_FLOPS, 4.0 * rows * (m + keep))
+    row_line("k4", t0, f"{r['shape']}, exact on flagship and random words", r, 0.0)
+    return r
+
+
+def composite_needs(payload, image_shape, tile_px):
+    """What the data needs of K2: (the (pixel, splat) pairs of live splats
+    met by a pixel before its transmittance falls under 1e-4, the payload
+    rows met by any pixel of their tile before it saturates)."""
+    from vicasplat_tpu_torch.ops.rasterize.tiles import _tile_pixel_centers
+
+    pix = _tile_pixel_centers(image_shape, tile_px, payload.device)
+    p = payload[:, None]  # (T, 1, K, 16) against (T, P, 1) pixels
+    dx, dy = pix[..., 0:1] - p[..., 0], pix[..., 1:2] - p[..., 1]
+    power = -0.5 * (p[..., 2] * dx * dx + p[..., 4] * dy * dy) - p[..., 3] * dx * dy
+    a = torch.clamp(p[..., 5] * torch.exp(power.clamp(max=0.0)), max=0.99)
+    a = torch.where((power > 0) | (a < 1 / 255), torch.zeros_like(a), a)
+    logom = torch.log1p(-a)
+    alive = torch.cumsum(logom, -1) - logom >= math.log(EXIT_T)
+    return int(((p[..., 5] > 0) & alive).sum()), int(alive.any(1).sum())
+
+
+def composite_phase(dev, flagship_payload, image_shape, tile_px, chunk):
+    """K2 on the flagship view's payload and on a dense one that saturates."""
+    from vicasplat_tpu_torch.ops.rasterize.pallas_composite import (
+        composite_reference,
+        composite_tiles_kernel,
+        dense_payload,
+    )
+
+    t0 = time.perf_counter()
+    bg = torch.zeros(3, device=dev)
+    tw = -(-image_shape[1] // tile_px)
+    rows = {}
+    for label, p in (("flagship", flagship_payload),
+                     ("dense", dense_payload(*flagship_payload.shape[:2], tile_px,
+                                             tw, seed=5, device=dev))):
+        out = composite_tiles_kernel(p, image_shape, tile_px, bg, chunk)
+        ref = composite_reference(p, image_shape, tile_px, bg, chunk)
+        err = max((a - b).abs().max().item() for a, b in zip(out, ref))
+        tol = RENDER_TOL + EXIT_T * p[..., 6:10].abs().max().item()
+        if not err < tol:
+            raise AssertionError(f"K2 {label}: max abs err {err} >= {tol}")
+        pairs, rows_needed = composite_needs(p, image_shape, tile_px)
+        r = dict(shape=f"payload {tuple(p.shape)} f32 -> {image_shape}",
+                 max_abs_err=err, tol=tol, pairs=pairs, rows_needed=rows_needed,
+                 alpha_mean=out[2].mean().item(),
+                 ms=cuda_ms(lambda: composite_tiles_kernel(p, image_shape, tile_px,
+                                                           bg, chunk)),
+                 plain_ms=cuda_ms(lambda: composite_reference(p, image_shape,
+                                                              tile_px, bg, chunk),
+                                  iters=5),
+                 library_ms=None)
+        # columns 0-9 of each needed row in (10-15 are padding no arithmetic
+        # reads), rgb, depth and alpha out
+        r["bound_ms"], r["bound_by"] = bound(
+            COMPOSITE_OPS * pairs, H100_F32_FLOPS,
+            40.0 * rows_needed + 20.0 * image_shape[0] * image_shape[1])
+        row_line("k2", t0, f"{label} {r['shape']}, {pairs} pixel-splat pairs and "
+                 f"{rows_needed} payload rows needed, alpha mean "
+                 f"{r['alpha_mean']:.4f}", r, tol)
+        rows[label] = r
+    return rows
+
+
+def tail_phase(args):
+    """K3 on the GS head's own inputs, with and without the merger addend m.
+    The library yardstick is cuDNN unfused in bf16: the add, conv2d, relu
+    and conv2d (four calls; three without m)."""
+    import torch.nn.functional as F
+
+    from vicasplat_tpu_torch.kernels import dpt_tail_reference, fused_dpt_tail
+
+    t0 = time.perf_counter()
+    a, m, w1, b1, w2, b2 = args
+    N, H, W, C = a.shape
+    Fd, O = w1.shape[0], w2.shape[0]
+    w2c = w2.reshape(O, Fd, 1, 1)
+
+    def library(x, m):
+        x = x if m is None else x + m
+        h = F.relu(F.conv2d(x.permute(0, 3, 1, 2), w1, b1, padding=1))
+        return F.conv2d(h, w2c, b2).permute(0, 2, 3, 1)
+
+    rows = {}
+    for label, mm in (("with m", m), ("without m", None)):
+        out = fused_dpt_tail(a, mm, w1, b1, w2, b2).float()
+        ref = dpt_tail_reference(a, mm, w1, b1, w2, b2).float()
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        if not err < TAIL_TOL:
+            raise AssertionError(f"K3 {label}: relative err {err} >= {TAIL_TOL}")
+        del out, ref
+        n_in = 2 if mm is not None else 1
+        r = dict(shape=f"a{', m' if mm is not None else ''} {tuple(a.shape)} bf16, "
+                 f"w1 {tuple(w1.shape)}, O {O}",
+                 max_abs_err=err,
+                 ms=cuda_ms(lambda: fused_dpt_tail(a, mm, w1, b1, w2, b2), iters=10),
+                 plain_ms=cuda_ms(lambda: dpt_tail_reference(a, mm, w1, b1, w2, b2),
+                                  iters=3, warmup=1),
+                 library_ms=cuda_ms(lambda: library(a, mm), iters=10),
+                 library=f"cuDNN bf16, {n_in + 2} calls")
+        flops = 2.0 * N * H * W * (9 * C * Fd + Fd * O)
+        nbytes = 2.0 * (n_in * a.numel() + N * H * W * O + w1.numel() + w2.numel())
+        r["bound_ms"], r["bound_by"] = bound(flops, H100_BF16_FLOPS, nbytes)
+        r["tflops"] = flops / r["ms"] * 1e-9
+        row_line("k3", t0, f"{label} {r['shape']} (relative err; "
+                 f"{r['tflops']:.1f} TFLOP/s; library: {r['library']})", r, TAIL_TOL)
+        rows[label] = r
     return rows
 
 
@@ -124,10 +308,8 @@ def profile_window(fn):
     return wall_ms, device_ms, ops[:8]
 
 
-def render_check(dev):
-    """The rasterizer on the card against the same code on the CPU, on a
-    small random scene (1000 splats, SH degree 4, 2 views of 96 x 128)."""
-    from vicasplat_tpu_torch.ops.rasterize import render
+def small_scene():
+    """1,000 random splats (SH degree 4) and 2 views of 96 x 128."""
     from vicasplat_tpu_torch.ops.rasterize.projection import cov6_from_scale_rot
 
     g = torch.Generator().manual_seed(2)
@@ -141,14 +323,68 @@ def render_check(dev):
     ext = torch.eye(4).repeat(2, 1, 1)
     ext[1, :3, 3] = torch.tensor([0.2, -0.1, 0.3])
     K = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]]).repeat(2, 1, 1)
+    return means, cov6, sh, opac, ext, K
+
+
+def render_check(dev, cfg):
+    """The rasterizer with `cfg` on the card against the same code on the
+    CPU (where the kernels take their plain versions), on the small scene:
+    (max abs err, its tolerance, alpha mean)."""
+    from vicasplat_tpu_torch.ops.rasterize import render
+    from vicasplat_tpu_torch.ops.rasterize.projection import project_gaussians
+
+    means, cov6, sh, opac, ext, K = small_scene()
 
     def run(d):
         return render(means.to(d), cov6.to(d), sh.to(d), opac.to(d), ext.to(d),
-                      K.to(d), (96, 128), torch.zeros(3, device=d), 4)
+                      K.to(d), (96, 128), torch.zeros(3, device=d), 4, cfg=cfg)
 
     cpu, gpu = run("cpu"), run(dev)
-    return max((a.cpu() - b).abs().max().item() for a, b in zip(gpu, cpu)), \
-        cpu[2].mean().item()
+    err = max((a.cpu() - b).abs().max().item() for a, b in zip(gpu, cpu))
+    tol = RENDER_TOL
+    if cfg.backend != "xla":  # K2's exit drops <= 1e-4 of a feature
+        splats = [project_gaussians(means, cov6, sh, opac, torch.linalg.inv(e), k,
+                                    (96, 128), 4) for e, k in zip(ext, K)]
+        feat = max(max(s.color.abs().max().item(), s.depth.abs().max().item())
+                   for s in splats)
+        tol += EXIT_T * feat
+    return err, tol, cpu[2].mean().item()
+
+
+def grads_check(dev, cfg):
+    """A wiring check of K2's autograd function on the small scene, with a
+    learnable background: its forward (K2) against the plain forward of the
+    same call, as max abs error, and the gradients of a scalar of the render
+    to means, opacities, both pose deltas and the background against the
+    plain compositing, as relative max errors. Both backwards are the plain
+    recompute, so they show the wiring, not K2's forward."""
+    from vicasplat_tpu_torch.kernels import composite_launch
+    from vicasplat_tpu_torch.ops.rasterize import render
+
+    means, cov6, sh, opac, ext, K = (x.to(dev) for x in small_scene())
+    delta = torch.full((2, 3), 0.01, device=dev)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+
+    def run(c):
+        leaves = [means.clone().requires_grad_(), opac.clone().requires_grad_(),
+                  delta.clone().requires_grad_(), delta.clone().requires_grad_(),
+                  bg.clone().requires_grad_()]
+        before = composite_launch.launches
+        col, dep, alp = render(leaves[0], cov6, sh, leaves[1], ext, K, (96, 128),
+                               leaves[4], 4, cam_rot_delta=leaves[2],
+                               cam_trans_delta=leaves[3], cfg=c)
+        ((col ** 2).sum() + 1e-2 * dep.sum() + alp.sum()).backward()
+        return [col, dep, alp], [x.grad for x in leaves], \
+            composite_launch.launches - before
+
+    out, got, launches = run(cfg)
+    ref_out, ref, ref_launches = run(dataclasses.replace(cfg, backend="xla"))
+    if (launches, ref_launches) != (2, 0):
+        raise AssertionError(f"K2 launches {launches} (2 views), plain {ref_launches}")
+    fwd = max((a - b).abs().max().item() for a, b in zip(out, ref_out))
+    return fwd, {name: ((a - b).abs().max() / b.abs().max()).item()
+                 for name, a, b in zip(("means", "opacities", "rot", "trans",
+                                        "background"), got, ref)}
 
 
 def flagship_inputs(dev):
@@ -163,6 +399,26 @@ def flagship_inputs(dev):
         B, N_VIEWS, 3, 3)
 
 
+def check_outputs(out, rendered):
+    g = out["gaussians"]
+    n_gauss = g.means.numel() // 3
+    checks = {
+        "gaussians": n_gauss == 1 * 8 * 256 * 256 == 524288,
+        "extrinsics": tuple(out["gaussian_camera_extrins"].shape) == (1, 8, 4, 4),
+        "color": tuple(rendered.color.shape) == (1, N_VIEWS, 256, 256, 3),
+        "depth": tuple(rendered.depth.shape) == (1, N_VIEWS, 256, 256),
+        "harmonics": tuple(g.harmonics.shape[-2:]) == (3, 25),
+    }
+    tensors = dict(g._asdict(), poses=out["gaussian_camera_extrins"],
+                   color=rendered.color, depth=rendered.depth, alpha=rendered.alpha)
+    checks.update({f"finite {k}": bool(torch.isfinite(v).all()) for k, v in
+                   tensors.items()})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"flagship outputs fail: {bad}")
+    return n_gauss
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -173,7 +429,15 @@ def main():
         DecoderSplattingConfig,
         decoder_forward,
     )
-    from vicasplat_tpu_torch.kernels import attention_reference, build, flash_attention
+    from vicasplat_tpu_torch.kernels import (
+        attention_reference,
+        bitonic_topk,
+        build,
+        composite_launch,
+        dpt_tail_reference,
+        flash_attention,
+        fused_dpt_tail,
+    )
     from vicasplat_tpu_torch.models import (
         GaussianAdapterConfig,
         VicaNetConfig,
@@ -181,8 +445,25 @@ def main():
         init_vicasplat,
         vicasplat_forward,
     )
-    from vicasplat_tpu_torch.models import vicanet
+    from vicasplat_tpu_torch.models import heads, vicanet
     from vicasplat_tpu_torch.models.layers import fill_normal_, sdpa
+    from vicasplat_tpu_torch.models.vicasplat import VicaSplat
+    from vicasplat_tpu_torch.ops.rasterize import RasterizeConfig, tiles
+    from vicasplat_tpu_torch.ops.rasterize.pallas_composite import composite_tiles_kernel
+
+    # the package exports the function `render` under the module's name
+    render_mod = importlib.import_module("vicasplat_tpu_torch.ops.rasterize.render")
+
+    torch.backends.cudnn.allow_tf32 = False  # float32 convs in full float32
+    counters = {"flash_attn": flash_attention, "dpt_tail": fused_dpt_tail,
+                "composite": composite_launch, "bitonic_topk": bitonic_topk}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -191,103 +472,189 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    build.build("flash_attn")
-    build.load("flash_attn")
-    ptxas = [ln.strip() for ln in build.build_logs.get("flash_attn", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase("build", t0, "flash_attn by nvcc; " + " | ".join(ptxas))
+    build.build_all(KERNELS)
+    for name in KERNELS:
+        build.load(name)
+        ptxas = [ln.strip() for ln in build.build_logs.get(name, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        phase("build", t0, f"{name} by nvcc; " + " | ".join(ptxas))
 
     k1 = flash_phase(dev)
 
-    # ---- 4. flagship main path ----
+    # ---- the default path (K1 only) ----
     t0 = time.perf_counter()
     cfg = VicaSplatConfig(backbone=VicaNetConfig(),
                           gaussian_adapter=GaussianAdapterConfig(sh_degree=4))
     gen = torch.Generator(device=dev).manual_seed(0)
     model = init_vicasplat(cfg, gen, dev)
     # the camera head starts at zero (identity poses); small random weights
-    # make the poses depend on the backbone, so phase 5 can compare them
+    # make the poses depend on the backbone, so plain-k1 can compare them
     fill_normal_(model.camera_extrinsic_head.proj.weight, 0.02, gen)
     model = model.to(torch.bfloat16).eval()
     context, tgt_ext, tgt_K = flagship_inputs(dev)
-    dec_cfg = DecoderSplattingConfig()
     dec_depth = cfg.backbone.dec_depth
+    # the accelerator serving configuration, on the same weights
+    with torch.device(dev):
+        model_acc = VicaSplat(dataclasses.replace(cfg, head_tail_backend="pallas"))
+    model_acc = model_acc.to(torch.bfloat16).eval()
+    model_acc.load_state_dict(model.state_dict())
+    configs = {
+        "default": (model, DecoderSplattingConfig()),
+        "accel": (model_acc, DecoderSplattingConfig(
+            rasterize=RasterizeConfig(backend="pallas", binning="origin"))),
+    }
 
     @torch.inference_mode()
-    def forward():
-        return vicasplat_forward(model, context, dtype=torch.bfloat16)
+    def forward(which="default"):
+        return vicasplat_forward(configs[which][0], context, dtype=torch.bfloat16)
 
     @torch.inference_mode()
-    def render(out):
-        return decoder_forward(dec_cfg, out["gaussians"], tgt_ext, tgt_K, (256, 256))
+    def render(out, which="default", views=N_VIEWS):
+        return decoder_forward(configs[which][1], out["gaussians"],
+                               tgt_ext[:, :views], tgt_K[:, :views], (256, 256))
 
-    flash_attention.launches = 0
+    reset_counts()
     out = forward()
     rendered = render(out)
     torch.cuda.synchronize()
-    launches = flash_attention.launches
-    if launches != dec_depth:
-        raise AssertionError(f"K1 launched {launches} times, not {dec_depth}")
-    g = out["gaussians"]
-    n_gauss = g.means.numel() // 3
-    checks = {
-        "gaussians": n_gauss == 1 * 8 * 256 * 256 == 524288,
-        "extrinsics": tuple(out["gaussian_camera_extrins"].shape) == (1, 8, 4, 4),
-        "color": tuple(rendered.color.shape) == (1, N_VIEWS, 256, 256, 3),
-        "harmonics": tuple(g.harmonics.shape[-2:]) == (3, 25),
-    }
-    tensors = dict(g._asdict(), poses=out["gaussian_camera_extrins"],
-                   color=rendered.color, depth=rendered.depth, alpha=rendered.alpha)
-    checks.update({f"finite {k}": bool(torch.isfinite(v).all()) for k, v in
-                   tensors.items()})
-    bad = [k for k, ok in checks.items() if not ok]
-    if bad:
-        raise AssertionError(f"flagship outputs fail: {bad}")
-    render_err, render_cover = render_check(dev)
-    if not render_err < RENDER_TOL:
+    launches = counts()
+    want = {"flash_attn": dec_depth, "dpt_tail": 0, "composite": 0, "bitonic_topk": 0}
+    if launches != want:
+        raise AssertionError(f"default path launches {launches}, not {want}")
+    n_gauss = check_outputs(out, rendered)
+    render_err, render_tol, render_cover = render_check(dev, RasterizeConfig())
+    if not render_err < render_tol:
         raise AssertionError(f"render on the card vs CPU: {render_err}")
-    phase("flagship", t0, f"render check vs CPU: max abs err {render_err:.2e} "
-          f"(tol {RENDER_TOL}, alpha mean {render_cover:.3f}); "
-          f"{n_gauss} Gaussians, poses "
-          f"{tuple(out['gaussian_camera_extrins'].shape)}, color "
-          f"{tuple(rendered.color.shape)}, all finite; K1 launches {launches}; "
+    phase("flagship", t0, f"default: render check vs CPU: max abs err "
+          f"{render_err:.2e} (tol {render_tol}, alpha mean {render_cover:.3f}); "
+          f"{n_gauss} Gaussians, poses {tuple(out['gaussian_camera_extrins'].shape)}, "
+          f"color {tuple(rendered.color.shape)}, all finite; launches {launches}; "
           f"alpha mean {rendered.alpha.float().mean().item():.4f}")
 
+    # ---- the accelerator path (K1, K3, K2, K4) ----
     t0 = time.perf_counter()
-    fwd_ms, rnd_ms = [], []
+    reset_counts()
+    out_acc = forward("accel")
+    rendered_acc = render(out_acc, "accel")
+    torch.cuda.synchronize()
+    launches_acc = counts()
+    want = {"flash_attn": dec_depth, "dpt_tail": 1, "composite": N_VIEWS,
+            "bitonic_topk": N_VIEWS}
+    if launches_acc != want:
+        raise AssertionError(f"accelerator path launches {launches_acc}, not {want}")
+    check_outputs(out_acc, rendered_acc)
+    phase("accel", t0, f"forward + {N_VIEWS}-view render: launches {launches_acc}; "
+          f"color {tuple(rendered_acc.color.shape)}, all finite; alpha mean "
+          f"{rendered_acc.alpha.float().mean().item():.4f}")
+
+    # ---- each kernel on the inputs the accelerator path gives it ----
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*args):
+            seen.setdefault(name, args)
+            return fn(*args)
+        return wrapped
+
+    with mock.patch.object(heads, "fused_dpt_tail", spy("k3", fused_dpt_tail)), \
+            mock.patch.object(tiles, "bitonic_topk", spy("k4", bitonic_topk)), \
+            mock.patch.object(render_mod, "composite_tiles_kernel",
+                              spy("k2", composite_tiles_kernel)):
+        render(forward("accel"), "accel", views=1)
+    rcfg = configs["accel"][1].rasterize
+    with torch.inference_mode():  # the captured inputs are inference tensors
+        k4 = topk_phase(dev, seen["k4"][0], seen["k4"][1])
+        k2 = composite_phase(dev, seen["k2"][0], (256, 256), rcfg.tile_px,
+                             min(rcfg.pallas_chunk, rcfg.max_per_tile))
+        k3 = tail_phase(seen.pop("k3"))
+    seen.clear()
+
+    # ---- both configurations in turns ----
+    t0 = time.perf_counter()
+    times = {w: {"forward": [], "render": []} for w in configs}
     for i in range(7):  # 2 warm-ups, then 5 timed
-        before = flash_attention.launches
-        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        e0.record()
-        o = forward()
-        e1.record()
-        render(o)
-        e2.record()
-        torch.cuda.synchronize()
-        if flash_attention.launches - before != dec_depth:
-            raise AssertionError("K1 launch count per forward changed")
-        if i >= 2:
-            fwd_ms.append(e0.elapsed_time(e1))
-            rnd_ms.append(e1.elapsed_time(e2))
-    fwd_med, rnd_med = statistics.median(fwd_ms), statistics.median(rnd_ms)
+        for which in configs:
+            e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            e0.record()
+            o = forward(which)
+            e1.record()
+            render(o, which)
+            e2.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times[which]["forward"].append(e0.elapsed_time(e1))
+                times[which]["render"].append(e1.elapsed_time(e2))
+            del o
+    med = {w: {k: statistics.median(v) for k, v in t.items()} for w, t in times.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    phase("timing", t0, f"forward_ms median {fwd_med:.2f} {fwd_ms}; "
-          f"render_{N_VIEWS}view_ms median {rnd_med:.2f} {rnd_ms}; "
-          f"peak allocated {peak_gb:.1f} GB")
+    for which in configs:
+        phase("timing", t0, f"{which}: forward_ms median {med[which]['forward']:.2f} "
+              f"{times[which]['forward']}; render_{N_VIEWS}view_ms median "
+              f"{med[which]['render']:.2f} {times[which]['render']}")
+    phase("timing", t0, f"peak allocated {peak_gb:.1f} GB")
 
     t0 = time.perf_counter()
-    fwd_prof = profile_window(forward)
-    rnd_prof = profile_window(lambda: render(out))
-    for name, (wall, dev_ms, top), med in (("forward", fwd_prof, fwd_med),
-                                            ("render", rnd_prof, rnd_med)):
-        busy = ("not measured" if not dev_ms else
-                f"{dev_ms / wall:.3f} of the profiled window, "
-                f"{dev_ms / med:.3f} of the timed median")
-        phase("profile", t0, f"{name}: host window {wall:.2f} ms, device "
-              f"kernels {dev_ms:.2f} ms, busy share {busy}; top operators by "
-              "device ms: " + "; ".join(f"{n} {ms:.3f}" for n, ms in top))
+    prof = {}
+    for which in configs:
+        o = forward(which)
+        prof[which] = {"forward": profile_window(lambda: forward(which)),
+                       "render": profile_window(lambda: render(o, which))}
+        for stage, (wall, dev_ms, top) in prof[which].items():
+            busy = ("not measured" if not dev_ms else
+                    f"{dev_ms / wall:.3f} of the profiled window, "
+                    f"{dev_ms / med[which][stage]:.3f} of the timed median")
+            phase("profile", t0, f"{which} {stage}: host window {wall:.2f} ms, "
+                  f"device kernels {dev_ms:.2f} ms, busy share {busy}; top "
+                  "operators by device ms: "
+                  + "; ".join(f"{n} {ms:.3f}" for n, ms in top))
+        del o
 
-    # ---- 5. the same forward with K1 swapped for its plain version ----
+    # ---- K3 in the forward: against its plain version, noise floor ----
+    # K3 and cuDNN's unfused bf16 convs round differently; the accelerator
+    # forward is held against the same forward with K3's float32 plain
+    # version: at most twice as far as the default forward, plus a floor
+    t0 = time.perf_counter()
+    with mock.patch.object(heads, "fused_dpt_tail", dpt_tail_reference):
+        ref_tail = forward("accel")
+
+    def gs_dist(a):
+        ga, gr = a["raw_gaussians"][..., 3:], ref_tail["raw_gaussians"][..., 3:]
+        return {"gs_raw_rel": ((ga - gr).abs().max() / gr.abs().max()).item(),
+                "opacities_abs": (a["gaussians"].opacities
+                                  - ref_tail["gaussians"].opacities).abs().max().item()}
+
+    d_k3, d_def = gs_dist(out_acc), gs_dist(out)
+    floor3 = {"gs_raw_rel": 1e-3, "opacities_abs": 1e-3}
+    tol3 = {m: 2 * d_def[m] + floor3[m] for m in floor3}
+    phase("plain-k3", t0, ", ".join(
+        f"{m} {d_k3[m]:.3e} (default path {d_def[m]:.3e}, tol {tol3[m]:.3e})"
+        for m in floor3))
+    bad = [m for m in floor3 if not d_k3[m] <= tol3[m]]
+    if bad:
+        raise AssertionError(f"K3 forward and its plain version disagree: {bad}")
+    del ref_tail
+
+    # ---- K2 + K4 against the CPU, and gradients through K2 ----
+    t0 = time.perf_counter()
+    acc_raster = configs["accel"][1].rasterize
+    err, tol, cover = render_check(dev, acc_raster)
+    if not err < tol:
+        raise AssertionError(f"accelerator render on the card vs CPU: {err} >= {tol}")
+    phase("render", t0, f"accelerator rasterizer (K2 + K4) vs CPU: max abs err "
+          f"{err:.2e} (tol {tol:.2e}, alpha mean {cover:.3f})")
+    t0 = time.perf_counter()
+    fwd_err, g_err = grads_check(dev, acc_raster)
+    phase("grads", t0, f"wiring of K2's autograd function, learnable background: "
+          f"forward vs plain max abs err {fwd_err:.2e} (tol {tol:.2e}); gradients "
+          "vs plain compositing, relative: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in g_err.items())
+          + f" (tol {GRAD_TOL})")
+    if not fwd_err < tol:
+        raise AssertionError(f"K2's forward in the grads check disagrees: {fwd_err}")
+    if not max(g_err.values()) < GRAD_TOL:
+        raise AssertionError(f"gradients through K2 disagree: {g_err}")
+
+    # ---- the default forward with K1 swapped for its plain version ----
     # Random bf16 weights make the network chaotic: a rounding difference in
     # one attention output grows through 11 more blocks, the DPT heads and
     # the exp map of the means. So the kernel's forward is held against the
@@ -333,20 +700,29 @@ def main():
     if bad:
         raise AssertionError(f"kernel and plain forward disagree: {bad}")
 
-    dec = k1["decoder"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "vicasplat_tpu_torch/csrc/flash_attn.cu",
-        "replaces": "vicasplat_tpu/models/vicanet.py:242",
-        "launches": launches, "max_abs_err": dec["max_abs_err"], "ms": dec["ms"],
-        "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-        "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
-        "shape": dec["shape"],
-    }], "flagship": {"forward_ms": fwd_med, "render_ms": rnd_med,
-                     "forward_device_kernel_ms": fwd_prof[1],
-                     "render_device_kernel_ms": rnd_prof[1],
-                     "forward_plain_attention_ms": plain_fwd_ms,
-                     "wall_s": time.perf_counter() - t_start}}), flush=True)
+    def entry(name, replaces, r):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")
+        return dict({"name": name, "route": "cuda",
+                     "source": f"vicasplat_tpu_torch/csrc/{name}.cu",
+                     "replaces": replaces, "launches": launches_acc[name]},
+                    **{k: r[k] for k in keys}, **{k: r[k] for k in r if k not in keys})
+
+    print(json.dumps({"kernels": [
+        entry("flash_attn", "vicasplat_tpu/models/vicanet.py:242", k1["decoder"]),
+        entry("composite", "vicasplat_tpu/ops/rasterize/pallas_composite.py:59",
+              k2["flagship"]),
+        entry("dpt_tail", "vicasplat_tpu/ops/dpt_tail.py:43", k3["with m"]),
+        entry("bitonic_topk", "vicasplat_tpu/ops/rasterize/pallas_bitonic.py:31", k4),
+    ], "extra": {"composite_dense": k2["dense"], "dpt_tail_without_m": k3["without m"]},
+        "flagship": {
+            which: {"forward_ms": med[which]["forward"],
+                    "render_ms": med[which]["render"],
+                    "forward_device_kernel_ms": prof[which]["forward"][1],
+                    "render_device_kernel_ms": prof[which]["render"][1]}
+            for which in configs},
+        "forward_plain_attention_ms": plain_fwd_ms,
+        "wall_s": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

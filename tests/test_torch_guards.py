@@ -35,8 +35,10 @@ def _imports(tree):
 
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
-    assert "vicasplat_tpu_torch/kernels/flash_attn.py" in names
-    assert (PORT / "csrc" / "flash_attn.cu").exists()
+    for kernel in ("flash_attn", "composite", "dpt_tail", "bitonic_topk"):
+        assert f"vicasplat_tpu_torch/kernels/{kernel}.py" in names
+        assert (PORT / "csrc" / f"{kernel}.cu").exists()
+    assert "vicasplat_tpu_torch/ops/rasterize/pallas_composite.py" in names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)

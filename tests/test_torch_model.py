@@ -222,3 +222,43 @@ def test_bridge_keys_cover_the_model(flagship):
         model = tvs.VicaSplat(tcfg)
     got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert got == _expected_shapes(shape_tree)
+
+
+def test_gs_head_fused_tail_matches_jax():
+    """dpt_gs_head with tail_backend="pallas" (the fused tail K3, its plain
+    version here) against the JAX head with its Pallas tail, interpreted;
+    the sizes of the JAX package's own gated-path test."""
+    kw = dict(hook_dims=(64, 64, 64, 64), layer_dims=(24, 48, 96, 192),
+              feature_dim=128, head_type="gs_params", num_channels=82,
+              use_input_merger=True, tail_backend="pallas")
+    jcfg = jheads.DPTConfig(**kw)
+    params = jheads.init_dpt(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(6)
+    gh = 4
+    hooks = [rng.normal(size=(2, gh * gh, 64)).astype(np.float32) for _ in range(4)]
+    imgs = rng.normal(size=(2, 16 * gh, 16 * gh, 3)).astype(np.float32)
+    ref = jheads.dpt_gs_head(params, jcfg, [jnp.asarray(h) for h in hooks],
+                             (gh, gh), jnp.asarray(imgs), jnp.float32)
+    mod = theads.DPT(theads.DPTConfig(**kw))
+    mod.load_state_dict(weights.state_dict_from_jax(params), strict=True)
+    with torch.no_grad():
+        out = theads.dpt_gs_head(mod, [torch.from_numpy(h) for h in hooks],
+                                 (gh, gh), torch.from_numpy(imgs), torch.float32)
+    assert out.shape == (2, 64, 64, 82)
+    assert_close(out, ref)
+
+
+def test_forward_fused_tail_matches_jax():
+    """The forward with head_tail_backend="pallas": the GS head takes the
+    fused tail in both packages (the 3-channel centre head stays plain by
+    the JAX gate), and the bridge loads the same parameters."""
+    jcfg, tcfg = tiny_cfgs(head_tail_backend="pallas")
+    assert tcfg.gs_dpt().tail_backend == "pallas"
+    params = perturbed_params(jcfg)
+    images, K = tiny_context()
+    ref, out = run_both(jcfg, tcfg, params, images, K)
+    for name in ("raw_gaussians", "gaussian_camera_extrins"):
+        assert_close(out[name], ref[name], msg=name)
+    for name in ("harmonics", "opacities", "scales"):
+        assert_close(getattr(out["gaussians"], name),
+                     getattr(ref["gaussians"], name), msg=name)

@@ -1,0 +1,83 @@
+"""K4: per-row ascending sort of unsigned 32-bit words, first `keep` kept
+(csrc/bitonic_topk.cu), and its plain version.
+
+Replaces the Pallas TPU kernel `vicasplat_tpu/ops/rasterize/pallas_bitonic.py`
+(`_bitonic_kernel`, `bitonic_topk_u32`) that origin binning uses to
+depth-order each tile's candidates. Torch has no sortable uint32, so the
+words travel as their bit patterns in int32 (`to_u32_bits`): the kernel
+reads them as unsigned, and an int32 tensor cannot hold a word wider than
+32 bits. `from_u32_bits` gives the values back in int64, the port's carrier
+of every uint32 key of the JAX package.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+MAX_SMEM_BYTES = 227 * 1024  # shared memory one block may use on Hopper
+U32_MAX = 0xFFFFFFFF
+
+
+def to_u32_bits(values: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensor of the same 32 bits."""
+    return torch.where(values > 0x7FFFFFFF, values - (1 << 32), values).to(torch.int32)
+
+
+def from_u32_bits(bits: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their unsigned values in int64."""
+    return bits.long() & U32_MAX
+
+
+def topk_reference(words: torch.Tensor, keep: int) -> torch.Tensor:
+    """The first `keep` of each row in ascending unsigned order: torch.sort
+    of the unsigned values held in int64."""
+    return to_u32_bits(torch.sort(from_u32_bits(words), dim=1).values[:, :keep])
+
+
+def _check(words: torch.Tensor, keep: int):
+    if words.ndim != 2:
+        raise ValueError(f"bitonic_topk takes (rows, m) words, got {tuple(words.shape)}")
+    if words.dtype != torch.int32:
+        raise TypeError(f"words are {words.dtype}; 32-bit words travel as int32 "
+                        "bit patterns (to_u32_bits)")
+    m = words.shape[1]
+    if m < 2 or m & (m - 1):
+        raise ValueError(f"row length {m} is not a power of two >= 2")
+    if not 0 < keep <= m:
+        raise ValueError(f"keep={keep} outside 1..{m}")
+
+
+def bitonic_topk(words: torch.Tensor, keep: int) -> torch.Tensor:
+    """(rows, m) int32 bit patterns of u32 words, m a power of two ->
+    (rows, keep), each row's smallest `keep` in ascending unsigned order.
+
+    A CUDA tensor launches the kernel (contiguous, m * 4 bytes within one
+    block's shared memory); a CPU tensor takes `topk_reference`.
+    """
+    _check(words, keep)
+    if words.device.type == "cpu":
+        return topk_reference(words, keep)
+    if words.device.type != "cuda":
+        raise ValueError(f"bitonic_topk does not run on {words.device}")
+    rows, m = words.shape
+    if m * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"row of {m} words exceeds {MAX_SMEM_BYTES} bytes of shared memory")
+    if not words.is_contiguous():
+        raise ValueError("words are not contiguous")
+    out = torch.empty(rows, keep, dtype=torch.int32, device=words.device)
+    fn = build.load("bitonic_topk").vs_bitonic_topk
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(words.data_ptr(), out.data_ptr(), rows, m, keep, stream)
+    if rc != 0:
+        raise RuntimeError(f"bitonic_topk launch failed: cudaError {rc}")
+    bitonic_topk.launches += 1
+    return out
+
+
+bitonic_topk.launches = 0  # kernel launches since the last reset

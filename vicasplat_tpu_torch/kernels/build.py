@@ -38,26 +38,46 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` into a shared library unless it is built."""
+def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha1(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
-    out = BUILD_DIR / f"{name}-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    build_logs[name] = proc.stderr
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return out
+    return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names) -> dict[str, Path]:
+    """Compile `csrc/<name>.cu` for every name not built yet, one nvcc
+    process per source, all started together."""
+    jobs, outs = {}, {}
+    for name in names:
+        src, out = _target(name)
+        outs[name] = out
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        jobs[name] = (proc, src, tmp, out)
+    failed = []
+    for name, (proc, src, tmp, out) in jobs.items():
+        _, err = proc.communicate()
+        build_logs[name] = err
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{err}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` into a shared library unless it is built."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,62 @@
+"""K2: per-tile alpha compositing with early exit (csrc/composite.cu).
+
+Replaces the forward of the Pallas TPU kernel
+`vicasplat_tpu/ops/rasterize/pallas_composite.py` (`_kernel`, `_chunk_math`,
+`_composite_pallas_raw`). This module is the launch alone; the plain
+version, the autograd function and the device dispatch around it are in
+`ops/rasterize/pallas_composite.py`, as the JAX package keeps them beside
+its kernel there.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+PAYLOAD_COLS = 16
+MAX_SMEM_BYTES = 227 * 1024  # shared memory one block may use on Hopper
+
+
+def composite_launch(payload: torch.Tensor, image_shape: tuple, tile_px: int,
+                     background: torch.Tensor, chunk: int):
+    """payload (tiles, K, 16) float32 on the card -> (rgb (H, W, 3),
+    depth (H, W), alpha = 1 - T_final (H, W)), through the kernel.
+
+    Raises unless the payload is a contiguous, 16-byte aligned float32 CUDA
+    tensor, a tile has at most 1024 pixels and `chunk` rows fit one block's
+    shared memory.
+    """
+    if payload.device.type != "cuda":
+        raise ValueError(f"the composite kernel does not run on {payload.device}")
+    if payload.dtype != torch.float32:
+        raise TypeError(f"payload is {payload.dtype}; the kernel takes float32")
+    if not payload.is_contiguous() or payload.data_ptr() % 16:
+        raise ValueError("payload is not contiguous and 16-byte aligned")
+    if tile_px * tile_px > 1024:
+        raise ValueError(f"tile_px {tile_px} gives more than 1024 threads a block")
+    if chunk * PAYLOAD_COLS * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"chunk {chunk} exceeds one block's shared memory")
+    H, W = image_shape
+    tw = -(-W // tile_px)
+    num_tiles, K, _ = payload.shape
+    rgb = payload.new_empty(H, W, 3)
+    depth = payload.new_empty(H, W)
+    alpha = payload.new_empty(H, W)
+    bg = background.detach().to(payload.device, torch.float32).contiguous()
+    fn = build.load("composite").vs_composite
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(payload.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(payload.data_ptr(), num_tiles, K, chunk, tile_px, tw, H, W,
+                bg.data_ptr(), rgb.data_ptr(), depth.data_ptr(), alpha.data_ptr(),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"composite launch failed: cudaError {rc}")
+    composite_launch.launches += 1
+    return rgb, depth, alpha
+
+
+composite_launch.launches = 0  # kernel launches since the last reset

@@ -2,8 +2,12 @@
 the regression head, the Gaussian-parameter head with its RGB merger, the
 pts3d exp postprocess and the camera head. Activations are NHWC.
 
-Only the plain (XLA-equivalent) tail is ported: the fused DPT tail of the
-JAX package (`head_tail_backend="pallas"`, kernel K3) waits for its kernel.
+`DPTConfig.tail_backend` picks the full-resolution tail as in JAX: "xla"
+runs conv -> relu -> conv, "pallas" the fused tail K3
+(`kernels/dpt_tail.py`; in this package "pallas" names the hand-written
+CUDA kernel, which takes its plain version on CPU tensors), "auto" the
+kernel for CUDA tensors and the plain convs for CPU tensors. The gates on
+the shapes are the JAX package's, so one config takes the kernel in both.
 """
 from __future__ import annotations
 
@@ -14,7 +18,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.dpt_tail import fused_dpt_tail
 from .layers import conv2d, conv_transpose2d, linear, resize_bilinear_align_corners
+
+TAIL_BACKENDS = ("xla", "pallas", "auto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +33,12 @@ class DPTConfig:
     num_channels: int = 3
     head_type: str = "regression"  # or "gs_params"
     use_input_merger: bool = False
+    tail_backend: str = "xla"  # "xla" | "pallas" | "auto"
+
+    def __post_init__(self):
+        if self.tail_backend not in TAIL_BACKENDS:
+            raise ValueError(f"tail_backend={self.tail_backend!r} is not one "
+                             f"of {TAIL_BACKENDS}")
 
 
 def _conv(c_in, c_out, k, bias=True, stride=1):
@@ -112,13 +125,31 @@ class DPT(nn.Module):
         return self.refinenet1(p2, l0, dtype)
 
 
+def _cast(conv: nn.Conv2d, dtype):
+    """(weight, bias) in the activations' dtype, as the JAX tail casts them."""
+    return conv.weight.to(dtype), None if conv.bias is None else conv.bias.to(dtype)
+
+
+def _tail_backend(cfg: DPTConfig, x: torch.Tensor) -> str:
+    if cfg.tail_backend == "auto":
+        return "pallas" if x.device.type == "cuda" else "xla"
+    return cfg.tail_backend
+
+
 def dpt_regression_head(mod: DPT, hook_tokens, grid_hw, dtype) -> torch.Tensor:
     """DPT + regression head -> (B, H, W, num_channels) at image resolution."""
     h = conv2d(mod.head["conv1"], mod.trunk(hook_tokens, grid_hw, dtype), dtype)
     _, hh, ww, _ = h.shape
     h = resize_bilinear_align_corners(h, (2 * hh, 2 * ww))
-    h = F.relu(conv2d(mod.head["conv2"], h, dtype))
-    return conv2d(mod.head["conv3"], h, dtype)
+    conv2, conv3 = mod.head["conv2"], mod.head["conv3"]
+    # the JAX gate: the fused tail pays off only with >= 64 output channels
+    if _tail_backend(mod.cfg, h) == "pallas" and not (
+            h.shape[1] % 8 or h.shape[-1] % 128 or conv2.out_channels % 128
+            or mod.cfg.num_channels < 64):
+        return fused_dpt_tail(h.contiguous(), None, *_cast(conv2, h.dtype),
+                              *_cast(conv3, h.dtype))
+    h = F.relu(conv2d(conv2, h, dtype))
+    return conv2d(conv3, h, dtype)
 
 
 def dpt_gs_head(mod: DPT, hook_tokens, grid_hw, images, dtype) -> torch.Tensor:
@@ -127,11 +158,20 @@ def dpt_gs_head(mod: DPT, hook_tokens, grid_hw, images, dtype) -> torch.Tensor:
     p1 = mod.trunk(hook_tokens, grid_hw, dtype)
     _, hh, ww, _ = p1.shape
     p1 = resize_bilinear_align_corners(p1, (2 * hh, 2 * ww))
+    conv1, conv2 = mod.head["conv1"], mod.head["conv2"]
     if mod.cfg.use_input_merger:
-        p1 = p1 + F.relu(conv2d(mod.input_merger["conv"], images.to(p1.dtype),
-                                dtype))
-    h = F.relu(conv2d(mod.head["conv1"], p1, dtype))
-    return conv2d(mod.head["conv2"], h, dtype)
+        direct = F.relu(conv2d(mod.input_merger["conv"], images.to(p1.dtype),
+                               dtype))
+        # the JAX gate: odd sizes (portrait or rectangular crops) stay plain
+        if _tail_backend(mod.cfg, p1) == "pallas" and not (
+                p1.shape[1] % 8 or p1.shape[-1] % 128):
+            # the kernel reads channels-last rows: the einsum resize and the
+            # conv may hand back other strides
+            return fused_dpt_tail(p1.contiguous(), direct.contiguous(),
+                                  *_cast(conv1, p1.dtype), *_cast(conv2, p1.dtype))
+        p1 = p1 + direct
+    h = F.relu(conv2d(conv1, p1, dtype))
+    return conv2d(conv2, h, dtype)
 
 
 def postprocess_pts3d_exp(raw_xyz: torch.Tensor, vmin: float = 0.0,

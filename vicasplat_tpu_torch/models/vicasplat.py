@@ -48,7 +48,7 @@ class VicaSplatConfig:
     predict_conf: bool = False
     camera_type: str = "dq"  # "dq" | "qt"
     pts3d_bounds: tuple = (0.0, float("inf"))
-    # "pallas" needs the fused DPT tail (kernel K3), not ported yet
+    # DPT tails: "xla" | "pallas" (the fused tail K3) | "auto" (by device)
     head_tail_backend: str = "xla"
 
     @property
@@ -64,14 +64,15 @@ class VicaSplatConfig:
         return DPTConfig(
             hook_dims=(bb.enc_embed_dim,) + (bb.dec_embed_dim,) * 3,
             num_channels=3 + (1 if self.predict_conf else 0),
-            head_type="regression")
+            head_type="regression", tail_backend=self.head_tail_backend)
 
     def gs_dpt(self) -> DPTConfig:
         bb = self.backbone
         return DPTConfig(
             hook_dims=(bb.enc_embed_dim,) + (bb.dec_embed_dim,) * 3,
             num_channels=self.gaussian_adapter.raw_gs_dim,
-            head_type="gs_params", use_input_merger=True)
+            head_type="gs_params", use_input_merger=True,
+            tail_backend=self.head_tail_backend)
 
 
 class VicaSplat(nn.Module):
@@ -79,9 +80,6 @@ class VicaSplat(nn.Module):
 
     def __init__(self, cfg: VicaSplatConfig):
         super().__init__()
-        if cfg.head_tail_backend != "xla":
-            raise NotImplementedError(
-                "the fused DPT tail (kernel K3) is not ported; use 'xla'")
         self.cfg = cfg
         bb = cfg.backbone
         self.backbone = VicaNet(bb)

@@ -1,10 +1,14 @@
 """Rendering API (port of vicasplat_tpu/ops/rasterize/render.py): batched
 views, RGB + expected depth + alpha, with optional SE(3) pose deltas.
 
-Only the default configuration is ported: XLA-equivalent compositing
-(`backend="xla"`) and dup-sort binning. The per-tile compositing kernel
-(K2, `backend="pallas"`) and origin binning with its bitonic top-K (K4,
-`binning="origin"`) raise until their kernels are written.
+`RasterizeConfig` keeps the JAX package's field names and values, so a JAX
+config converts with `dataclasses.asdict`. In this package `"pallas"` names
+the hand-written CUDA kernel: `backend="pallas"` composites through K2
+(`pallas_composite.py`), `binning="origin"` merges through the bitonic
+top-K K4 (`kernels/bitonic_topk.py`); each takes its plain version on CPU
+tensors, and `"auto"` means the kernel for CUDA tensors and the matmul
+compositing for CPU tensors, as it means the Pallas kernel on an
+accelerator and XLA on the CPU in JAX.
 """
 from __future__ import annotations
 
@@ -14,8 +18,12 @@ from typing import Optional
 import torch
 
 from ...geometry.se3 import rigid_inverse, se3_exp
+from .pallas_composite import composite_tiles_kernel
 from .projection import project_gaussians
-from .tiles import bin_splats, composite_tiles
+from .tiles import bin_splats, bin_splats_origin, composite_tiles
+
+BACKENDS = ("xla", "pallas", "auto")
+BINNINGS = ("dup_sort", "origin")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,20 +31,25 @@ class RasterizeConfig:
     tile_px: int = 16
     dup_hw: tuple = (2, 2)     # max tiles a splat may cover (centred window)
     max_per_tile: int = 512    # front-most splats kept per tile
-    chunk: int = 256           # compositing chunk (matmul G dim)
+    chunk: int = 256           # matmul compositing chunk (matmul G dim)
     tile_group: int = 64       # tiles composited together
+    packed_gather: bool = False  # 32-byte payload rows: not ported, raises
+    # "xla": matmul compositing; "pallas": the K2 kernel (forward; the
+    # backward recomputes through the matmul path); "auto": by device
     backend: str = "xla"
+    pallas_chunk: int = 128    # payload rows K2 stages at a time
+    # "dup_sort": one sort of N*KH*KW duplicated keys; "origin": one sort
+    # of N keys by window origin, then K4 merges each tile's neighbours
     binning: str = "dup_sort"
+    unroll_views: bool = False  # views always run as a Python loop here
 
     def __post_init__(self):
-        if self.backend != "xla":
-            raise NotImplementedError(
-                f"backend={self.backend!r} needs the compositing kernel (K2), "
-                "which is not ported yet")
-        if self.binning != "dup_sort":
-            raise NotImplementedError(
-                f"binning={self.binning!r} needs the bitonic top-K kernel "
-                "(K4), which is not ported yet")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend={self.backend!r} is not one of {BACKENDS}")
+        if self.binning not in BINNINGS:
+            raise ValueError(f"binning={self.binning!r} is not one of {BINNINGS}")
+        if self.packed_gather:
+            raise NotImplementedError("packed_gather is not ported yet")
 
 
 def render_view(means, cov6, harmonics, opacities, viewmat, intrinsics,
@@ -45,8 +58,16 @@ def render_view(means, cov6, harmonics, opacities, viewmat, intrinsics,
     """One view -> (color (H, W, 3), depth (H, W), alpha (H, W))."""
     splats = project_gaussians(means, cov6, harmonics, opacities, viewmat,
                                intrinsics, image_shape, sh_degree, near=near)
-    payload = bin_splats(splats, image_shape, cfg.tile_px, cfg.dup_hw,
-                         cfg.max_per_tile)
+    bin_fn = bin_splats_origin if cfg.binning == "origin" else bin_splats
+    payload = bin_fn(splats, image_shape, cfg.tile_px, cfg.dup_hw,
+                     cfg.max_per_tile)
+    backend = cfg.backend
+    if backend == "auto":
+        backend = "pallas" if payload.device.type == "cuda" else "xla"
+    if backend == "pallas":
+        return composite_tiles_kernel(payload, image_shape, cfg.tile_px,
+                                      background,
+                                      min(cfg.pallas_chunk, cfg.max_per_tile))
     return composite_tiles(payload, image_shape, cfg.tile_px, background,
                            chunk=cfg.chunk, tile_group=cfg.tile_group)
 

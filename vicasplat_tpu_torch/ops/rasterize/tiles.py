@@ -1,5 +1,5 @@
 """Tile binning and alpha compositing (port of
-vicasplat_tpu/ops/rasterize/tiles.py, the default dup-sort path).
+vicasplat_tpu/ops/rasterize/tiles.py).
 
 1. Binning: each projected splat emits up to KH*KW (key, id) entries for the
    tiles its 3-sigma rect overlaps (a window centred on the rect when the
@@ -7,6 +7,9 @@ vicasplat_tpu/ops/rasterize/tiles.py, the default dup-sort path).
    package sorts uint32 keys, which torch cannot sort, so the same bit
    layout sits in int64. One sort orders every tile front to back; each
    tile keeps its front-most K entries as rows of a packed (N, 16) payload.
+   Origin binning (`bin_splats_origin`) sorts each splat once, by the tile
+   at its window's origin, and merges each tile's KH*KW neighbour segments
+   with the bitonic top-K (kernel K4).
 2. Compositing: per chunk of G splats over a tile's P pixels, the
    transmittance prefix is an exclusive cumulative sum of log(1 - alpha),
    taken as a matmul with a strictly-upper-triangular matrix; weights
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ...kernels.bitonic_topk import bitonic_topk, from_u32_bits, to_u32_bits
 from .projection import Splats
 
 # packed payload columns (16 f32 per splat):
@@ -37,24 +41,24 @@ def pack_payload(splats: Splats) -> torch.Tensor:
     return torch.cat([cols, pad], dim=-1)
 
 
-def bin_splats(splats: Splats, image_shape: tuple, tile_px: int,
-               dup_hw: tuple, max_per_tile: int) -> torch.Tensor:
-    """-> payload (num_tiles, K, 16); alpha is 0 on empty slots."""
+def _key_layout(image_shape: tuple, tile_px: int):
+    """-> (tiles_y, tiles_x, tile_bits, depth_shift) of the u32 sort keys."""
     H, W = image_shape
     th, tw = -(-H // tile_px), -(-W // tile_px)
-    num_tiles = th * tw
-    tile_bits = (num_tiles + 1).bit_length()  # values 0..num_tiles (sentinel)
+    tile_bits = (th * tw + 1).bit_length()  # values 0..num_tiles (sentinel)
     depth_shift = 32 - tile_bits
     if depth_shift < 16:
-        raise ValueError(f"{num_tiles} tiles leave only {depth_shift} depth "
+        raise ValueError(f"{th * tw} tiles leave only {depth_shift} depth "
                          f"bits; raise tile_px for this resolution")
-    n = splats.mean2d.shape[0]
-    KH, KW = dup_hw
-    dev = splats.mean2d.device
+    return th, tw, tile_bits, depth_shift
 
+
+def _windows(splats: Splats, th: int, tw: int, tile_px: int, dup_hw: tuple):
+    """Each splat's window of at most KH x KW tiles, centred on its 3-sigma
+    rect -> (wy0, wx0, ty1, tx1, live)."""
+    KH, KW = dup_hw
     mx, my = splats.mean2d[:, 0], splats.mean2d[:, 1]
     r = splats.radius
-    live = r > 0
     inv_t = 1.0 / tile_px
 
     def tile_of(x, hi):
@@ -67,10 +71,36 @@ def bin_splats(splats: Splats, image_shape: tuple, tile_px: int,
                         torch.maximum(tx1 - KW + 1, tx0))
     wy0 = torch.minimum(torch.maximum(cty - (KH - 1) // 2, ty0),
                         torch.maximum(ty1 - KH + 1, ty0))
+    return wy0, wx0, ty1, tx1, r > 0
 
+
+def _depth_bits(splats: Splats, depth_shift: int) -> torch.Tensor:
     # positive float32 bits order like the floats; the low mantissa bits go
     depth = splats.depth.float().clamp(min=1e-6)
-    depth_bits = depth.view(torch.int32).long() >> (32 - depth_shift)
+    return depth.view(torch.int32).long() >> (32 - depth_shift)
+
+
+def _segments(sorted_key, num_tiles, depth_shift, length):
+    """[starts, ends) of each tile's run of sorted keys, and the clamped
+    start of a `length`-wide window over it."""
+    tile_keys = torch.arange(num_tiles, device=sorted_key.device,
+                             dtype=torch.long) << depth_shift
+    starts = torch.searchsorted(sorted_key, tile_keys, side="left")
+    ends = torch.searchsorted(sorted_key, tile_keys + (1 << depth_shift),
+                              side="left")
+    return starts, ends, starts.clamp(max=length)
+
+
+def bin_splats(splats: Splats, image_shape: tuple, tile_px: int,
+               dup_hw: tuple, max_per_tile: int) -> torch.Tensor:
+    """-> payload (num_tiles, K, 16); alpha is 0 on empty slots."""
+    th, tw, _, depth_shift = _key_layout(image_shape, tile_px)
+    num_tiles = th * tw
+    n = splats.mean2d.shape[0]
+    KH, KW = dup_hw
+    dev = splats.mean2d.device
+    wy0, wx0, ty1, tx1, live = _windows(splats, th, tw, tile_px, dup_hw)
+    depth_bits = _depth_bits(splats, depth_shift)
     sentinel = num_tiles << depth_shift
 
     keys = []
@@ -84,11 +114,6 @@ def bin_splats(splats: Splats, image_shape: tuple, tile_px: int,
     sorted_key, order = torch.sort(key)
     sorted_idx = order % n  # splat id of each sorted entry
 
-    tile_keys = torch.arange(num_tiles, device=dev, dtype=torch.long) << depth_shift
-    starts = torch.searchsorted(sorted_key, tile_keys, side="left")
-    ends = torch.searchsorted(sorted_key, tile_keys + (1 << depth_shift),
-                              side="left")
-
     # each tile's front-K ids are a contiguous run of sorted_idx; a run that
     # would pass the end shifts back and masks the positions before `starts`
     L = n * KH * KW
@@ -96,10 +121,101 @@ def bin_splats(splats: Splats, image_shape: tuple, tile_px: int,
         sorted_idx = torch.cat([sorted_idx,
                                 sorted_idx.new_zeros(max_per_tile - L)])
         L = max_per_tile
-    starts_i = starts.clamp(max=L - max_per_tile)
+    starts, ends, starts_i = _segments(sorted_key, num_tiles, depth_shift,
+                                       L - max_per_tile)
     pos = starts_i[:, None] + torch.arange(max_per_tile, device=dev)[None, :]
     slot_valid = (pos >= starts[:, None]) & (pos < ends[:, None])
     payload = pack_payload(splats)[sorted_idx[pos]]  # (num_tiles, K, 16)
+    payload[..., 5] *= slot_valid.to(payload.dtype)
+    return payload
+
+
+U32_FULL = 0xFFFFFFFF
+
+
+def bin_splats_origin(splats: Splats, image_shape: tuple, tile_px: int,
+                      dup_hw: tuple, max_per_tile: int) -> torch.Tensor:
+    """Origin binning, with `bin_splats`'s payload contract.
+
+    One sort of N (origin tile | depth) keys, whose index word carries a
+    bitmap of the window slots inside the splat's rect above the splat id.
+    Tile t's candidates are the front S = K entries of the KH*KW segments
+    whose origin is t - (dy, dx) and whose bit (dy, dx) is set; each is a
+    u32 word (depth | candidate slot), and the bitonic top-K (K4) keeps the
+    K nearest. As in JAX, a segment is capped at K before the merge and the
+    merged words keep 32 - log2(m) depth bits; ties order arbitrarily.
+    """
+    th, tw, tile_bits, depth_shift = _key_layout(image_shape, tile_px)
+    num_tiles = th * tw
+    n = splats.mean2d.shape[0]
+    KH, KW = dup_hw
+    n_slots = KH * KW
+    idx_bits = max(n - 1, 1).bit_length()
+    if idx_bits + n_slots > 32:
+        raise ValueError(f"{n} splats x {n_slots} window slots don't fit a "
+                         "packed u32 index")
+    dev = splats.mean2d.device
+    wy0, wx0, ty1, tx1, live = _windows(splats, th, tw, tile_px, dup_hw)
+    depth_bits = _depth_bits(splats, depth_shift)
+
+    valid_bits = torch.zeros(n, dtype=torch.long, device=dev)
+    for dy in range(KH):
+        for dx in range(KW):
+            ok = (wy0 + dy <= ty1) & (wx0 + dx <= tx1) & live
+            valid_bits |= ok.long() << (dy * KW + dx)
+    origin = wy0 * tw + wx0
+    key = torch.where(valid_bits > 0, (origin << depth_shift) | depth_bits,
+                      torch.full_like(origin, num_tiles << depth_shift))
+    pidx = (valid_bits << idx_bits) | torch.arange(n, device=dev)
+    sorted_key, order = torch.sort(key)
+    sorted_pidx = pidx[order]
+
+    S = max_per_tile
+    L = n
+    if L < S:  # tiny scene: pad with keys past every tile, dead ids
+        sorted_key = torch.cat([sorted_key, sorted_key.new_full((S - L,), U32_FULL)])
+        sorted_pidx = torch.cat([sorted_pidx, sorted_pidx.new_zeros(S - L)])
+        L = S
+    starts, ends, starts_i = _segments(sorted_key, num_tiles, depth_shift, L - S)
+    pos = starts_i[:, None] + torch.arange(S, device=dev)[None, :]
+    in_seg = (pos >= starts[:, None]) & (pos < ends[:, None])
+    seg_key, seg_pidx = sorted_key[pos], sorted_pidx[pos]  # (num_tiles, S)
+
+    # merged candidate width, padded to a power of two for the bitonic net
+    m = 1 << (n_slots * S - 1).bit_length()
+    slot_bits = m.bit_length() - 1
+    dkeep = 32 - slot_bits  # depth bits kept in the merged word
+    # JAX drops the tile bits by u32 wrap-around (key << tile_bits); int64
+    # keeps them, so mask to 32 bits before the right shift
+    seg_depth = ((seg_key << tile_bits) & U32_FULL) >> (32 - dkeep)
+    idx_mask = (1 << idx_bits) - 1
+
+    t_idx = torch.arange(num_tiles, device=dev)
+    tyy, txx = t_idx // tw, t_idx % tw
+    slot = torch.arange(S, device=dev)[None, :]
+    words, ids = [], []
+    for dy in range(KH):
+        for dx in range(KW):
+            oy, ox = tyy - dy, txx - dx
+            in_grid = (oy >= 0) & (ox >= 0)
+            o = oy.clamp(min=0) * tw + ox.clamp(min=0)
+            p_o = seg_pidx[o]
+            ok = (in_grid[:, None] & in_seg[o]
+                  & (((p_o >> (idx_bits + dy * KW + dx)) & 1) > 0))
+            word = (seg_depth[o] << slot_bits) | (len(words) * S + slot)
+            words.append(torch.where(ok, word, torch.full_like(word, U32_FULL)))
+            ids.append(p_o & idx_mask)
+    cand = torch.cat(words, dim=1)  # (num_tiles, n_slots * S)
+    cand_id = torch.cat(ids, dim=1)
+    if cand.shape[1] < m:
+        cand = torch.cat([cand, cand.new_full((num_tiles, m - cand.shape[1]),
+                                              U32_FULL)], dim=1)
+
+    # every word is within 32 bits by construction: K4 takes their patterns
+    merged = from_u32_bits(bitonic_topk(to_u32_bits(cand), max_per_tile))
+    slot_valid = merged != U32_FULL
+    src = (merged & (m - 1)).clamp(max=cand_id.shape[1] - 1)
+    payload = pack_payload(splats)[torch.gather(cand_id, 1, src)]
     payload[..., 5] *= slot_valid.to(payload.dtype)
     return payload
 
@@ -151,9 +267,7 @@ def composite_tiles(payload: torch.Tensor, image_shape: tuple, tile_px: int,
                     tile_group: int = 64):
     """Full image -> (rgb (H, W, 3), depth (H, W), alpha (H, W)). Tiles go
     in groups of `tile_group` to bound the (T, P, G) intermediates."""
-    H, W = image_shape
-    th, tw = -(-H // tile_px), -(-W // tile_px)
-    num_tiles = th * tw
+    num_tiles = payload.shape[0]
     pix = _tile_pixel_centers(image_shape, tile_px, payload.device)
     chunk = min(chunk, payload.shape[1])
     tile_group = min(tile_group, num_tiles)
@@ -164,10 +278,13 @@ def composite_tiles(payload: torch.Tensor, image_shape: tuple, tile_px: int,
              for g in range(0, num_tiles, tile_group)]
     rgb, dep, asum, t_final = (torch.cat(x) for x in zip(*parts))
     rgb = rgb + t_final[..., None] * background.to(rgb.dtype)
+    return tuple(stitch_tiles(x, image_shape, tile_px) for x in (rgb, dep, asum))
 
-    def stitch(x):
-        c = x.shape[2:]
-        x = x.reshape(th, tw, tile_px, tile_px, *c).transpose(1, 2)
-        return x.reshape(th * tile_px, tw * tile_px, *c)[:H, :W]
 
-    return stitch(rgb), stitch(dep), stitch(asum)
+def stitch_tiles(x: torch.Tensor, image_shape: tuple, tile_px: int) -> torch.Tensor:
+    """(num_tiles, P, ...) per-tile pixels -> (H, W, ...) image, cropped."""
+    H, W = image_shape
+    th, tw = -(-H // tile_px), -(-W // tile_px)
+    c = x.shape[2:]
+    x = x.reshape(th, tw, tile_px, tile_px, *c).transpose(1, 2)
+    return x.reshape(th * tile_px, tw * tile_px, *c)[:H, :W]
