@@ -20,6 +20,19 @@ Phases, each printing lines with their seconds:
             pixels saturate, K4 also on random words), with its time, the
             plain version's, one library call's where one exists, and the
             bound of this run's inputs;
+  k1-bwd    K1's backward kernels (dQ, dK, dV) against the float32 plain
+            backward at the decoder shape at batch 2, the encoder shape and
+            a ragged one, within twice SDPA's bf16 backward error plus a
+            floor, with the same four times;
+  train     the flagship training step (configs/main.yaml with
+            configs/experiment/re10k_8view.yaml: 2 x 8 context frames and
+            12 target views of 256^2, bf16 compute over float32 parameters,
+            remat "dots", mse + camera dq loss, AdamW with warm-up 1 and
+            cosine to 20,000 steps, clip 0.5) from seeded random weights:
+            2 warm-up and 3 timed steps with exact launch counts, finite
+            loss, logs and gradients, parameters unchanged by step 0 (lr 0)
+            and changed by step 1, one profiled step, and one gradient pass
+            with K1 swapped for its plain version (noise floor);
   timing    both configurations in turns, medians of 5 after 2 warm-ups;
   profile   one forward and one render of each under torch.profiler;
   plain-k3  the accelerator forward against the same forward with K3's
@@ -66,6 +79,11 @@ TAIL_TOL = 1e-2
 # gradients through K2's recompute against the plain compositing: the same
 # function summed in other orders, relative to the largest entry
 GRAD_TOL = 1e-3
+# K1's backward against the float32 plain backward, each of dQ, dK, dV
+# relative to its largest entry: at most twice SDPA's bf16 backward error
+# against the same reference, plus this floor (P and dS enter the products
+# rounded to bf16, 2^-9 relative)
+FLASH_BWD_FLOOR = 2e-3
 H100_BF16_FLOPS = 989e12    # dense tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12  # HBM3
@@ -73,7 +91,11 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # alpha 4 (one exp), tests 2, weight and blend 9
 COMPOSITE_OPS = 25
 N_VIEWS = 12
-KERNELS = ("flash_attn", "bitonic_topk", "composite", "dpt_tail")
+KERNELS = ("flash_attn", "flash_attn_bwd", "bitonic_topk", "composite",
+           "dpt_tail")
+# the training step's batch, and the cuts the issue allows if it does not
+# fit: targets to 4 first (the JAX package's own flagship step), then batch 1
+TRAIN_SHAPES = ((2, 12), (2, 4), (1, 4))
 
 
 def phase(name, t0, msg):
@@ -287,10 +309,280 @@ def tail_phase(args):
     return rows
 
 
+def flash_bwd_phase(dev):
+    """K1's backward (one call launches its D pass, dK/dV and dQ kernels)
+    against the float32 plain backward from the same q, k, v, dO and the
+    float32 forward's o and log-sum-exp; SDPA's bf16 backward, timed by
+    torch.autograd.grad on a kept graph, is the noise floor and the
+    library yardstick."""
+    import torch.nn.functional as F
+
+    from vicasplat_tpu_torch.kernels.flash_attn import (
+        _forward,
+        attention_backward_reference,
+        attention_lse_reference,
+        attention_reference,
+        flash_attention_backward,
+    )
+
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(7)
+    for label, (b, sq, sk, h) in {"decoder": (2, 2056, 2064, 12),
+                                  "encoder": (16, 257, 257, 16),
+                                  "ragged": (2, 200, 137, 12)}.items():
+        t0 = time.perf_counter()
+        q, do = (torch.randn(b, sq, h, 64, generator=g, device=dev).bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn(b, sk, h, 64, generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        o, lse = _forward(q, k, v, with_lse=True)
+        got = flash_attention_backward(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention_reference(q, k, v), attention_lse_reference(q, k)
+
+        def plain():
+            return attention_backward_reference(q, k, v, o_ref, lse_ref, do)
+
+        ref = plain()
+        xs = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        out_lib = F.scaled_dot_product_attention(*xs)
+        do_t = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(out_lib, xs, do_t, retain_graph=True)
+
+        lib = [x.transpose(1, 2) for x in library()]
+        errs = {}
+        for name, a, l, r in zip(("dq", "dk", "dv"), got, lib, ref):
+            scale = r.abs().max().item()
+            errs[name] = dict(abs=(a.float() - r).abs().max().item(),
+                              rel=(a.float() - r).abs().max().item() / scale,
+                              sdpa_rel=(l.float() - r).abs().max().item() / scale)
+        bad = [n for n, e in errs.items()
+               if not e["rel"] <= 2 * e["sdpa_rel"] + FLASH_BWD_FLOOR]
+        if bad:
+            raise AssertionError(f"K1 backward {label}: {bad} exceed the noise "
+                                 f"floor: {errs}")
+        lse_err = (lse - lse_ref).abs().max().item()
+        if not lse_err < 1e-3:
+            raise AssertionError(f"K1 forward's lse {label}: max abs err {lse_err}")
+        flops = 10.0 * b * h * sq * sk * 64
+        # q, o, dO, dQ at Sq; k, v, dK, dV at Sk (bf16); lse in float32
+        nbytes = 2.0 * 64 * h * b * (4 * sq + 4 * sk) + 4.0 * b * h * sq
+        ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, lse, do))
+        rows[label] = dict(
+            shape=f"q ({b}, {sq}, {h}, 64), k/v ({b}, {sk}, {h}, 64) bf16",
+            max_abs_err=max(e["abs"] for e in errs.values()), errors=errs,
+            lse_max_abs_err=lse_err, ms=ms, plain_ms=cuda_ms(plain, iters=3),
+            library_ms=cuda_ms(library, iters=10),
+            library="SDPA bf16 backward (torch.autograd.grad, kept graph)",
+            tflops=flops / ms * 1e-9)
+        rows[label]["bound_ms"], rows[label]["bound_by"] = bound(
+            flops, H100_BF16_FLOPS, nbytes)
+        # back to back, torch.autograd.grad's host time can set SDPA's
+        # time: the device kernels of one call of each, by the profiler
+        rows[label]["device_ms"] = profile_window(
+            lambda: flash_attention_backward(q, k, v, o, lse, do))[1]
+        rows[label]["library_device_ms"] = profile_window(library)[1]
+        del out_lib, xs, ref, lib
+        r = rows[label]
+        phase("k1-bwd", t0, f"{label} {r['shape']}: relative errors " + ", ".join(
+            f"{n} {e['rel']:.2e} (sdpa {e['sdpa_rel']:.2e}, tol "
+            f"{2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})" for n, e in errs.items())
+            + f"; lse max abs err {lse_err:.1e}; kernel_ms {r['ms']:.4f} "
+            f"({r['tflops']:.1f} TFLOP/s; device {r['device_ms']:.4f}) plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} (device "
+            f"{r['library_device_ms']:.4f}) bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+    return rows
+
+
+def train_batch(dev, B, V, size=256, T=8):
+    """A flagship training batch from a seed: images uniform in [0, 1],
+    frame-0-relative context poses with small random rotations (about 0.05
+    rad) and translations (about 0.1), targets drawn among the context
+    poses, near 1 and far 100."""
+    from vicasplat_tpu_torch.geometry.se3 import se3_exp
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    tau = torch.randn(B, T, 6, generator=g, device=dev) * torch.tensor(
+        [0.1] * 3 + [0.05] * 3, device=dev)
+    tau[:, 0] = 0.0
+    ext = se3_exp(tau)
+    K = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]],
+                     device=dev).expand(B, T, 3, 3).contiguous()
+    pick = torch.randint(0, T, (B, V), generator=g, device=dev)
+
+    def view(image, e, k, n):
+        return {"image": image, "extrinsics": e, "intrinsics": k,
+                "near": torch.ones(B, n, device=dev),
+                "far": torch.full((B, n), 100.0, device=dev)}
+
+    return {
+        "context": view(torch.rand(B, T, size, size, 3, generator=g, device=dev),
+                        ext, K, T),
+        "target": view(torch.rand(B, V, size, size, 3, generator=g, device=dev),
+                       torch.stack([ext[b, pick[b]] for b in range(B)]),
+                       K[:, :1].expand(B, V, 3, 3).contiguous(), V)}
+
+
+def train_config():
+    """configs/main.yaml with configs/experiment/re10k_8view.yaml, as the JAX
+    package's main.py builds it (no LPIPS: its VGG weights are not in the
+    repository; no distillation: distiller is '')."""
+    from vicasplat_tpu_torch.loss.losses import LossCameraConfig, LossMseConfig
+    from vicasplat_tpu_torch.models import (
+        GaussianAdapterConfig,
+        VicaNetConfig,
+        VicaSplatConfig,
+    )
+    from vicasplat_tpu_torch.training import OptimizerConfig, TrainConfig
+
+    return TrainConfig(
+        model=VicaSplatConfig(backbone=VicaNetConfig(use_intrinsic_embedding=True),
+                              gaussian_adapter=GaussianAdapterConfig(sh_degree=4)),
+        optimizer=OptimizerConfig(
+            lr=4e-5, warm_up_steps=1, backbone_lr_multiplier=0.25,
+            cosine_annealing=True, max_steps=20_000, gradient_clip_val=0.5,
+            new_param_keywords=("gaussian_param_head", "intrinsic_encoder")),
+        mse=LossMseConfig(weight=1.0),
+        camera=LossCameraConfig(weight=0.1, use_dq_loss=True, camera_type="dq"),
+        dtype="bfloat16", remat=True, remat_policy="dots")
+
+
+def grad_group(name):
+    """The parameter groups whose gradient norms plain-k1 compares."""
+    parts = name.split(".")
+    if parts[0] == "backbone" and parts[1] in ("enc_blocks", "dec_blocks"):
+        return ".".join(parts[:2])
+    return parts[0]
+
+
+def train_run(dev, cfg, B, V, want, reset_counts, counts):
+    """The training phase at batch B x 8 frames and V targets; raises
+    torch.cuda.OutOfMemoryError when it does not fit."""
+    from vicasplat_tpu_torch.models import init_vicasplat, vicanet
+    from vicasplat_tpu_torch.kernels.flash_attn import attention_reference
+    from vicasplat_tpu_torch.models.layers import sdpa
+    from vicasplat_tpu_torch.training import AdamW, compute_loss, make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = init_vicasplat(cfg.model, gen, dev)  # float32 parameters
+    params = list(model.parameters())
+    step = make_train_step(cfg, model, AdamW(model, cfg.optimizer))
+    batch = train_batch(dev, B, V)
+    torch.cuda.reset_peak_memory_stats()
+    times, steps = [], []
+    for i in range(5):  # 2 warm-ups, then 3 timed
+        before = [p.detach().clone() for p in params] if i < 2 else None
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs = step(batch, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = counts()
+        if launches != want:
+            raise AssertionError(f"train step {i} launches {launches}, not {want}")
+        logs = {k: float(v) for k, v in logs.items()}
+        nonfinite = int(step.nonfinite)
+        if nonfinite or not all(math.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"train step {i}: logs {logs}, {nonfinite} "
+                                 "non-finite gradient entries")
+        if before is not None:
+            changed = sum(int((p != q).sum()) for p, q in zip(params, before))
+            # the cosine schedule's warm-up starts at lr 0, as in optax
+            if (i == 0) != (changed == 0):
+                raise AssertionError(f"step {i} changed {changed} parameter entries")
+            del before
+        if i >= 2:
+            times.append(ms)
+        steps.append(dict(ms=ms, logs=logs, launches=launches, changed=changed
+                          if i < 2 else None))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall, dev_ms, top, kernels = profile_window(lambda: step(batch, 5))
+    k1_ms = sum(ms for name, ms in kernels.items() if "flash_" in name)
+
+    def grad_pass(attend):
+        with mock.patch.object(vicanet, "flash_attention", attend):
+            loss, _ = compute_loss(model, cfg, batch, 6)
+            # the deepest refinenets' rcu1 takes no input: no gradient
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        norms = {}
+        for (name, _), g in zip(model.named_parameters(), grads):
+            key = grad_group(name)
+            norms[key] = norms.get(key, 0.0) + (
+                0.0 if g is None else float((g.float() ** 2).sum()))
+        return dict(loss=float(loss.detach()), **{k: math.sqrt(v) for k, v in norms.items()})
+
+    reset_counts()
+    ref = grad_pass(lambda q, k, v: attention_reference(q, k, v).to(q.dtype))
+    alt = grad_pass(sdpa)
+    if any(counts().values()):
+        raise AssertionError(f"a swapped gradient pass launched {counts()}")
+    got = grad_pass(vicanet.flash_attention)
+    gap = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ref}
+    gap_sdpa = {k: abs(alt[k] - ref[k]) / abs(ref[k]) for k in ref}
+    floor = {k: 1e-4 if k == "loss" else 1e-2 for k in ref}
+    tol = {k: 2 * gap_sdpa[k] + floor[k] for k in ref}
+    return dict(batch=B, targets=V, steps=steps, step_ms=times,
+                train_step_ms=statistics.median(times), peak_gb=peak_gb,
+                profile_wall_ms=wall, device_ms=dev_ms, top=top, k1_device_ms=k1_ms,
+                k1_share=k1_ms / dev_ms if dev_ms else None,
+                plain_k1=dict(gap=gap, gap_sdpa=gap_sdpa, tol=tol, kernel=got,
+                              plain=ref, sdpa=alt))
+
+
+def train_phase(dev, dec_depth, reset_counts, counts):
+    """The flagship training step, cut only as far as memory forces."""
+    import gc
+
+    t0 = time.perf_counter()
+    cfg = train_config()
+    want = {"flash_attn": 2 * dec_depth, "flash_attn_bwd": dec_depth,
+            "dpt_tail": 0, "composite": 0, "bitonic_topk": 0}
+    cuts = []
+    for B, V in TRAIN_SHAPES:
+        try:
+            r = train_run(dev, cfg, B, V, want, reset_counts, counts)
+            break
+        except torch.cuda.OutOfMemoryError:
+            cuts.append(f"batch {B} x {V} targets: out of memory, peak "
+                        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+            phase("train", t0, "cut: " + cuts[-1])
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"the training step fits at no allowed size: {cuts}")
+    r["cuts"] = cuts
+    for i, st in enumerate(r["steps"]):
+        phase("train", t0, f"step {i}: {st['ms']:.1f} ms, loss {st['logs']['loss']:.5f}, "
+              f"logs {st['logs']}, launches {st['launches']}"
+              + ("" if st["changed"] is None else
+                 f", parameter entries changed {st['changed']}"))
+    phase("train", t0, f"batch {r['batch']} x 8 context frames, {r['targets']} "
+          f"targets of 256^2; cuts {cuts or 'none'}; train_step_ms median "
+          f"{r['train_step_ms']:.1f} {r['step_ms']}; peak allocated "
+          f"{r['peak_gb']:.1f} GB; profiled step: host window "
+          f"{r['profile_wall_ms']:.1f} ms, device kernels {r['device_ms']:.1f} ms, "
+          f"K1 kernels {r['k1_device_ms']:.2f} ms (share {r['k1_share']:.4f}); top "
+          "operators by device ms: " + "; ".join(f"{n} {ms:.2f}" for n, ms in r["top"]))
+    pk = r["plain_k1"]
+    phase("train", t0, "K1 vs plain attention, one gradient pass at the same "
+          "weights and batch (relative gaps): " + ", ".join(
+              f"{k} {pk['gap'][k]:.2e} (sdpa {pk['gap_sdpa'][k]:.2e}, tol "
+              f"{pk['tol'][k]:.2e})" for k in pk["gap"]))
+    bad = [k for k in pk["gap"] if not pk["gap"][k] <= pk["tol"][k]]
+    if bad:
+        raise AssertionError(f"K1 training gradients and the plain ones disagree: {bad}")
+    return r
+
+
 def profile_window(fn):
     """Run fn once under torch.profiler: (host window ms, device kernel ms,
     top operators by the device time of the kernels they launch, as
-    (name, ms)). The profiler's own host cost widens the window."""
+    (name, ms), and {kernel name: device ms}). The profiler's own host cost
+    widens the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -305,7 +597,9 @@ def profile_window(fn):
     ops = sorted(((e.key, e.self_device_time_total / 1e3) for e in events
                   if e.device_type == DeviceType.CPU and e.self_device_time_total),
                  key=lambda r: -r[1])
-    return wall_ms, device_ms, ops[:8]
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in events
+               if e.device_type == DeviceType.CUDA}
+    return wall_ms, device_ms, ops[:8], kernels
 
 
 def small_scene():
@@ -436,6 +730,7 @@ def main():
         composite_launch,
         dpt_tail_reference,
         flash_attention,
+        flash_attention_backward,
         fused_dpt_tail,
     )
     from vicasplat_tpu_torch.models import (
@@ -455,8 +750,10 @@ def main():
     render_mod = importlib.import_module("vicasplat_tpu_torch.ops.rasterize.render")
 
     torch.backends.cudnn.allow_tf32 = False  # float32 convs in full float32
-    counters = {"flash_attn": flash_attention, "dpt_tail": fused_dpt_tail,
-                "composite": composite_launch, "bitonic_topk": bitonic_topk}
+    counters = {"flash_attn": flash_attention,
+                "flash_attn_bwd": flash_attention_backward,
+                "dpt_tail": fused_dpt_tail, "composite": composite_launch,
+                "bitonic_topk": bitonic_topk}
 
     def reset_counts():
         for fn in counters.values():
@@ -492,6 +789,8 @@ def main():
     fill_normal_(model.camera_extrinsic_head.proj.weight, 0.02, gen)
     model = model.to(torch.bfloat16).eval()
     context, tgt_ext, tgt_K = flagship_inputs(dev)
+    tgt_near = torch.ones(tgt_ext.shape[:2], device=dev)
+    tgt_far = torch.full(tgt_ext.shape[:2], 100.0, device=dev)
     dec_depth = cfg.backbone.dec_depth
     # the accelerator serving configuration, on the same weights
     with torch.device(dev):
@@ -511,14 +810,16 @@ def main():
     @torch.inference_mode()
     def render(out, which="default", views=N_VIEWS):
         return decoder_forward(configs[which][1], out["gaussians"],
-                               tgt_ext[:, :views], tgt_K[:, :views], (256, 256))
+                               tgt_ext[:, :views], tgt_K[:, :views],
+                               tgt_near[:, :views], tgt_far[:, :views], (256, 256))
 
     reset_counts()
     out = forward()
     rendered = render(out)
     torch.cuda.synchronize()
     launches = counts()
-    want = {"flash_attn": dec_depth, "dpt_tail": 0, "composite": 0, "bitonic_topk": 0}
+    want = {"flash_attn": dec_depth, "flash_attn_bwd": 0, "dpt_tail": 0,
+            "composite": 0, "bitonic_topk": 0}
     if launches != want:
         raise AssertionError(f"default path launches {launches}, not {want}")
     n_gauss = check_outputs(out, rendered)
@@ -538,8 +839,8 @@ def main():
     rendered_acc = render(out_acc, "accel")
     torch.cuda.synchronize()
     launches_acc = counts()
-    want = {"flash_attn": dec_depth, "dpt_tail": 1, "composite": N_VIEWS,
-            "bitonic_topk": N_VIEWS}
+    want = {"flash_attn": dec_depth, "flash_attn_bwd": 0, "dpt_tail": 1,
+            "composite": N_VIEWS, "bitonic_topk": N_VIEWS}
     if launches_acc != want:
         raise AssertionError(f"accelerator path launches {launches_acc}, not {want}")
     check_outputs(out_acc, rendered_acc)
@@ -569,8 +870,13 @@ def main():
         k3 = tail_phase(seen.pop("k3"))
     seen.clear()
 
+    # ---- K1's backward, then the flagship training step ----
+    k1_bwd = flash_bwd_phase(dev)
+    train = train_phase(dev, dec_depth, reset_counts, counts)
+
     # ---- both configurations in turns ----
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()  # the inference peak, not train's
     times = {w: {"forward": [], "render": []} for w in configs}
     for i in range(7):  # 2 warm-ups, then 5 timed
         for which in configs:
@@ -599,7 +905,7 @@ def main():
         o = forward(which)
         prof[which] = {"forward": profile_window(lambda: forward(which)),
                        "render": profile_window(lambda: render(o, which))}
-        for stage, (wall, dev_ms, top) in prof[which].items():
+        for stage, (wall, dev_ms, top, _) in prof[which].items():
             busy = ("not measured" if not dev_ms else
                     f"{dev_ms / wall:.3f} of the profiled window, "
                     f"{dev_ms / med[which][stage]:.3f} of the timed median")
@@ -700,21 +1006,35 @@ def main():
     if bad:
         raise AssertionError(f"kernel and plain forward disagree: {bad}")
 
-    def entry(name, replaces, r):
+    def entry(name, replaces, r, launches=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape")
         return dict({"name": name, "route": "cuda",
                      "source": f"vicasplat_tpu_torch/csrc/{name}.cu",
-                     "replaces": replaces, "launches": launches_acc[name]},
+                     "replaces": replaces,
+                     "launches": launches_acc[name] if launches is None else launches},
                     **{k: r[k] for k in keys}, **{k: r[k] for k in r if k not in keys})
 
     print(json.dumps({"kernels": [
         entry("flash_attn", "vicasplat_tpu/models/vicanet.py:242", k1["decoder"]),
+        # launches per train step: each call runs its D pass, dK/dV and dQ
+        # kernels once
+        entry("flash_attn_bwd", "vicasplat_tpu/models/vicanet.py:242 (backward: "
+              "_flash_attention_bwd_dkv, _flash_attention_bwd_dq)",
+              k1_bwd["decoder"], train["steps"][-1]["launches"]["flash_attn_bwd"]),
         entry("composite", "vicasplat_tpu/ops/rasterize/pallas_composite.py:59",
               k2["flagship"]),
         entry("dpt_tail", "vicasplat_tpu/ops/dpt_tail.py:43", k3["with m"]),
         entry("bitonic_topk", "vicasplat_tpu/ops/rasterize/pallas_bitonic.py:31", k4),
-    ], "extra": {"composite_dense": k2["dense"], "dpt_tail_without_m": k3["without m"]},
+    ], "extra": {"composite_dense": k2["dense"], "dpt_tail_without_m": k3["without m"],
+                 "flash_attn_bwd_encoder": k1_bwd["encoder"],
+                 "flash_attn_bwd_ragged": k1_bwd["ragged"],
+                 "flash_attn_train_launches_per_step":
+                     train["steps"][-1]["launches"]["flash_attn"]},
+        "train": {k: train[k] for k in ("batch", "targets", "cuts", "train_step_ms",
+                                        "step_ms", "peak_gb", "device_ms",
+                                        "k1_device_ms", "k1_share", "top",
+                                        "plain_k1")},
         "flagship": {
             which: {"forward_ms": med[which]["forward"],
                     "render_ms": med[which]["render"],

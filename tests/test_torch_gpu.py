@@ -3,8 +3,11 @@
 They skip where there is no card. On the card they run without the JAX
 conftest: `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py`.
 """
+from unittest import mock
+
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vicasplat_tpu_torch.kernels import (
     attention_reference,
@@ -20,6 +23,12 @@ from vicasplat_tpu_torch.ops.rasterize.pallas_composite import (
     composite_tiles_kernel,
     dense_payload,
 )
+from vicasplat_tpu_torch.kernels.flash_attn import (
+    _forward,
+    attention_lse_reference,
+    flash_attention_backward,
+)
+from vicasplat_tpu_torch.models import heads
 from vicasplat_tpu_torch.ops.rasterize.tiles import composite_tiles
 
 pytestmark = pytest.mark.gpu
@@ -39,6 +48,14 @@ TAIL_TOL = 1e-2
 # gradients through K2's recompute against the plain compositing: the same
 # function summed in other orders, relative to the largest entry
 GRAD_TOL = 1e-3
+# K1's backward against the float32 gradient of the plain attention, each
+# of dQ, dK and dV relative to its largest entry: at most twice the error
+# of SDPA's bf16 backward against the same reference, plus this floor (P
+# and dS enter the products rounded to bf16, 2^-9 relative)
+FLASH_BWD_FLOOR = 2e-3
+# K1's row log-sum-exp against float32 logsumexp of the same bf16 inputs:
+# both sum float32 products, in other orders
+LSE_TOL = 1e-3
 
 
 @pytest.fixture
@@ -81,8 +98,49 @@ def test_flash_rejects_what_it_cannot_run(cuda):
         flash_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    with pytest.raises(NotImplementedError):
-        flash_attention(q.requires_grad_(), k, v)
+    # a tensor that needs a gradient runs the backward kernels
+    before = flash_attention_backward.launches
+    flash_attention(q.requires_grad_(), k, v).float().sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before + 1
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+@pytest.mark.parametrize(
+    "shape_q,sk",
+    [((2, 2056, 12, 64), 2064),   # decoder joint attention at batch 2
+     ((16, 257, 16, 64), 257),    # encoder attention
+     ((2, 200, 12, 64), 137)],    # ragged tiles, Sq > Sk
+)
+def test_flash_backward_matches_plain(cuda, shape_q, sk):
+    """dQ, dK, dV through the kernels against the float32 autograd gradient
+    of the plain attention, within twice SDPA's bf16 error plus a floor;
+    the forward's log-sum-exp against float32 logsumexp."""
+    q, k, v = _qkv(shape_q, sk, cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    do = torch.randn(q.shape, generator=g, device=cuda).bfloat16()
+
+    def grads(fn, *xs):
+        xs = [x.detach().clone().requires_grad_() for x in xs]
+        return torch.autograd.grad(fn(*xs), xs, do.to(fn(*xs).dtype))
+
+    ref = grads(attention_reference, *(x.float() for x in (q, k, v)))
+    before = flash_attention_backward.launches
+    got = grads(flash_attention, q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before + 1
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    lib = grads(lambda a, b, c: t(F.scaled_dot_product_attention(t(a), t(b), t(c))),
+                q, k, v)
+    for name, a, b, r in zip("qkv", got, lib, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape
+        scale = r.abs().max().item()
+        err = (a.float() - r).abs().max().item() / scale
+        err_lib = (b.float() - r).abs().max().item() / scale
+        assert err <= 2 * err_lib + FLASH_BWD_FLOOR, (name, err, err_lib)
+    lse = _forward(q, k, v, with_lse=True)[1]
+    err = (lse - attention_lse_reference(q, k)).abs().max().item()
+    assert err < LSE_TOL, err
 
 
 def test_topk_matches_plain(cuda):
@@ -210,3 +268,70 @@ def test_dpt_tail_rejects_what_it_cannot_run(cuda):
         fused_dpt_tail(a[..., :48].contiguous(), None, w1[:, :48], b1, w2, b2)
     with pytest.raises(ValueError):  # F = 64 has no kernel
         fused_dpt_tail(a, m, w1[:64], b1[:64], w2[:, :64], b2)
+    # F = 384, a multiple of 128, is taken
+    a, m, w1, b1, w2, b2 = _tail(cuda, 1, 8, 16, 128, 384, 8)
+    assert fused_dpt_tail(a, m, w1, b1, w2, b2).shape == (1, 8, 16, 8)
+
+
+def _tail_error(out, args):
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the reference in full float32
+    try:
+        ref = dpt_tail_reference(*args).float()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert out.shape == ref.shape
+    return (out.float() - ref).abs().max().item() / ref.abs().max().item()
+
+
+@pytest.mark.parametrize("N,H,W,C,Fd,O", [(1, 16, 64, 128, 128, 256),   # O = 256
+                                          (1, 8, 136, 384, 384, 200)])  # F, O sliced
+def test_dpt_tail_any_f_and_o(cuda, N, H, W, C, Fd, O):
+    """F runs in slices of 128 and O above 128 in slices of 128, as the JAX
+    gates send them: a regression tail with O = 256, and F = 384 with a
+    ragged O = 200."""
+    args = _tail(cuda, N, H, W, C, Fd, O)
+    before = fused_dpt_tail.launches
+    out = fused_dpt_tail(*args)
+    torch.cuda.synchronize()
+    assert fused_dpt_tail.launches == before + 1
+    assert _tail_error(out, args) < TAIL_TOL
+
+
+def test_dpt_gs_head_feature_dim_384(cuda):
+    """dpt_gs_head with feature_dim = 384 and the fused tail: the JAX gate
+    sends it to the kernel, which takes it, and it agrees with the same
+    head through the plain tail."""
+    cfg = heads.DPTConfig(hook_dims=(64, 64, 64, 64), layer_dims=(24, 48, 96, 192),
+                          feature_dim=384, head_type="gs_params", num_channels=83,
+                          use_input_merger=True, tail_backend="pallas")
+    torch.manual_seed(0)
+    mod = heads.DPT(cfg).to(cuda).bfloat16()
+    g = torch.Generator(device=cuda).manual_seed(6)
+    gh = 4
+    hooks = [torch.randn(2, gh * gh, 64, generator=g, device=cuda).bfloat16()
+             for _ in range(4)]
+    imgs = torch.rand(2, 16 * gh, 16 * gh, 3, generator=g, device=cuda).bfloat16()
+    with torch.no_grad():
+        before = fused_dpt_tail.launches
+        out = heads.dpt_gs_head(mod, hooks, (gh, gh), imgs, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert fused_dpt_tail.launches == before + 1
+        seen = []
+
+        def plain(*args):
+            seen.append(args)
+            return dpt_tail_reference(*args)
+
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False  # the plain tail in float32
+        try:
+            with mock.patch.object(heads, "fused_dpt_tail", plain):
+                ref = heads.dpt_gs_head(mod, hooks, (gh, gh), imgs,
+                                        torch.bfloat16)
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+    assert fused_dpt_tail.launches == before + 1 and len(seen) == 1
+    assert out.shape == (2, 64, 64, 83)
+    err = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    assert err < TAIL_TOL, err

@@ -168,7 +168,9 @@ def test_forward_and_render_end_to_end():
         jnp.full((B, V), 100.0), (size, size)))
     rj = jdec(ref["gaussians"], jnp.asarray(ext), jnp.asarray(tK))
     rt = tsp.decoder_forward(tsp.DecoderSplattingConfig(), out["gaussians"],
-                             torch.from_numpy(ext), torch.from_numpy(tK), (size, size))
+                             torch.from_numpy(ext), torch.from_numpy(tK),
+                             torch.ones(B, V), torch.full((B, V), 100.0),
+                             (size, size))
     assert rt.color.shape == (B, V, size, size, 3)
     assert float(rt.alpha.max()) > 0.1  # splats land in the views
     for name in ("color", "depth", "alpha"):

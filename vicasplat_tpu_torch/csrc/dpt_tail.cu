@@ -21,6 +21,14 @@
 // relu applied, h rounded to bf16 into shared memory, and the second product
 // runs against w2 (padded by the caller to a multiple of 8 rows, the mma
 // width). b2 is added and only the first O channels are stored.
+//
+// Any F that is a multiple of 128 and any O: F = 256 runs as one slice; any
+// other F runs in slices of 128 features, each slice's h feeding the second
+// product, whose float32 accumulators carry over the slices (h is the same
+// per element, so only the order of the second product's sum changes). O
+// above 128 is cut into slices of 128 output channels, one block each (the
+// wrapper pads w2 and b2 with zero rows to whole slices); each such block
+// recomputes the 3x3 conv of its pixels.
 // Shared-memory rows are padded by 8 elements so that ldmatrix hits 32
 // distinct banks. No wgmma or TMA yet.
 
@@ -82,7 +90,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int F>
+// FS: the features of one slice (its accumulators); kMulti: F > FS slices.
+template <int FS, bool kMulti>
 __global__ void __launch_bounds__(kThreads, 1)
 dpt_tail_kernel(const __nv_bfloat16* __restrict__ a,
                 const __nv_bfloat16* __restrict__ m,  // may be null
@@ -91,30 +100,32 @@ dpt_tail_kernel(const __nv_bfloat16* __restrict__ a,
                 const __nv_bfloat16* __restrict__ w2,  // (O_pad, F)
                 const float* __restrict__ b2,          // (O_pad,)
                 __nv_bfloat16* __restrict__ out,       // (N, H, W, O)
-                int H, int W, int C, int O, int O_pad) {
-  constexpr int kNT = F / 16;    // 8-channel n-tiles per warp (F / 2 channels)
-  constexpr int kHS = F + 8;     // row stride of h and w2 in shared memory
+                int H, int W, int C, int F, int O, int O_slice, int n_oslices) {
+  constexpr int kNT = FS / 16;   // 8-channel n-tiles per warp (FS / 2 channels)
+  constexpr int kHS = FS + 8;    // row stride of h and w2 in shared memory
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
   __nv_bfloat16* sX = smem;                          // [3][kBM + 2][kXS]
-  __nv_bfloat16* sW = smem + 3 * (kBM + 2) * kXS;    // [2][F][kXS]
+  __nv_bfloat16* sW = smem + 3 * (kBM + 2) * kXS;    // [2][FS][kXS]
   __nv_bfloat16* sH = smem;                          // [kBM][kHS], after phase 1
-  __nv_bfloat16* sW2 = smem + kBM * kHS;             // [O_pad][kHS]
+  __nv_bfloat16* sW2 = smem + kBM * kHS;             // [O_slice][kHS]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;  // 4 x 2 warps over pixels x F
-  const int p0 = blockIdx.x * kBM;
+  const int wm = warp & 3, wn = warp >> 2;  // 4 x 2 warps over pixels x FS
+  const int p0 = (blockIdx.x / n_oslices) * kBM;
+  const int o0 = (blockIdx.x % n_oslices) * O_slice;  // this block's channels
   const int row = blockIdx.y;
   const int img = blockIdx.z;
+  int f0 = 0;  // the current feature slice
 
   auto load_w1 = [&](int s, int buf) {
     const int tap = s % 9, c0 = (s / 9) * kKC;
-    __nv_bfloat16* dst = sW + buf * F * kXS;
-    for (int u = tid; u < F * (kKC / 8); u += kThreads) {
+    __nv_bfloat16* dst = sW + buf * FS * kXS;
+    for (int u = tid; u < FS * (kKC / 8); u += kThreads) {
       const int n = u >> 2, q = u & 3;
       cp_async16(dst + n * kXS + q * 8,
-                 w1 + (static_cast<long long>(tap) * F + n) * C + c0 + q * 8);
+                 w1 + (static_cast<long long>(tap) * F + f0 + n) * C + c0 + q * 8);
     }
     cp_async_commit();
   };
@@ -146,96 +157,102 @@ dpt_tail_kernel(const __nv_bfloat16* __restrict__ a,
     }
   };
 
-  float acc[2][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  // ---- phase 1: 3x3 conv as 9 taps x C / 32 chunks of k = 32 ----
-  const int steps = 9 * (C / kKC);
-  load_w1(0, 0);
-  for (int s = 0; s < steps; ++s) {
-    const int tap = s % 9;
-    if (tap == 0) load_x((s / 9) * kKC);  // the trailing barrier freed sX
-    if (s + 1 < steps) {
-      load_w1(s + 1, (s + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int dy = tap / 3, dx = tap % 3;
-    const __nv_bfloat16* wb = sW + (s & 1) * F * kXS;
-#pragma unroll
-    for (int kk = 0; kk < kKC / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + (lane & 15);  // output pixel
-        ldsm_x4(af[mt], sX + (dy * (kBM + 2) + r + dx) * kXS + kk * 16 +
-                            (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        uint32_t bf[4];
-        const int n = wn * (F / 2) + np * 16 + (lane & 7) + ((lane >> 4) << 3);
-        ldsm_x4(bf, wb + n * kXS + kk * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_16816(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          mma_16816(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
-        }
-      }
-    }
-    __syncthreads();  // this buffer (and sX) may be overwritten next
-  }
-
-  // ---- h = bf16(relu(acc + b1)) into shared memory; w2 beside it ----
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int col = wn * (F / 2) + nt * 8 + 2 * t;
-      const float bb0 = b1[col], bb1 = b1[col + 1];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * 32 + mt * 16 + g + 8 * half;
-        *reinterpret_cast<uint32_t*>(sH + r * kHS + col) =
-            pack_bf16x2(fmaxf(acc[mt][nt][2 * half] + bb0, 0.f),
-                        fmaxf(acc[mt][nt][2 * half + 1] + bb1, 0.f));
-      }
-    }
-  for (int u = tid; u < O_pad * (F / 8); u += kThreads) {
-    const int o = u / (F / 8), q = u % (F / 8);
-    *reinterpret_cast<uint4*>(sW2 + o * kHS + q * 8) =
-        *reinterpret_cast<const uint4*>(w2 + static_cast<long long>(o) * F + q * 8);
-  }
-  __syncthreads();
-
-  // ---- phase 2: y = h w2^T, each warp 16 pixels x O_pad channels ----
-  const int nt2 = O_pad / 8;
+  const int nt2 = O_slice / 8;
   float acc2[kMaxNT2][4];
 #pragma unroll
   for (int nt = 0; nt < kMaxNT2; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc2[nt][e] = 0.f;
-#pragma unroll 4
-  for (int ks = 0; ks < F / 16; ++ks) {
-    uint32_t af[4];
-    ldsm_x4(af, sH + (warp * 16 + (lane & 15)) * kHS + ks * 16 + (lane >> 4) * 8);
+
+  const int n_fs = kMulti ? F / FS : 1;
+  for (int fs = 0; fs < n_fs; ++fs) {
+    f0 = fs * FS;
+    if (fs > 0) __syncthreads();  // the previous slice's h and w2 are consumed
+    float acc[2][kNT][4];
 #pragma unroll
-    for (int nt = 0; nt < kMaxNT2; ++nt) {
-      if (nt < nt2) {
-        uint32_t b0, b1r;
-        ldsm_x2(b0, b1r, sW2 + (nt * 8 + (lane & 7)) * kHS + ks * 16 +
-                             ((lane >> 3) & 1) * 8);
-        mma_16816(acc2[nt], af, b0, b1r);
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+    // ---- phase 1: 3x3 conv as 9 taps x C / 32 chunks of k = 32 ----
+    const int steps = 9 * (C / kKC);
+    load_w1(0, 0);
+    for (int s = 0; s < steps; ++s) {
+      const int tap = s % 9;
+      if (tap == 0) load_x((s / 9) * kKC);  // the trailing barrier freed sX
+      if (s + 1 < steps) {
+        load_w1(s + 1, (s + 1) & 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int dy = tap / 3, dx = tap % 3;
+      const __nv_bfloat16* wb = sW + (s & 1) * FS * kXS;
+#pragma unroll
+      for (int kk = 0; kk < kKC / 16; ++kk) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int r = wm * 32 + mt * 16 + (lane & 15);  // output pixel
+          ldsm_x4(af[mt], sX + (dy * (kBM + 2) + r + dx) * kXS + kk * 16 +
+                              (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t bf[4];
+          const int n = wn * (FS / 2) + np * 16 + (lane & 7) + ((lane >> 4) << 3);
+          ldsm_x4(bf, wb + n * kXS + kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_16816(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+            mma_16816(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+          }
+        }
+      }
+      __syncthreads();  // this buffer (and sX) may be overwritten next
+    }
+
+    // ---- h = bf16(relu(acc + b1)) into shared memory; w2 beside it ----
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int col = wn * (FS / 2) + nt * 8 + 2 * t;
+        const float bb0 = b1[f0 + col], bb1 = b1[f0 + col + 1];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = wm * 32 + mt * 16 + g + 8 * half;
+          *reinterpret_cast<uint32_t*>(sH + r * kHS + col) =
+              pack_bf16x2(fmaxf(acc[mt][nt][2 * half] + bb0, 0.f),
+                          fmaxf(acc[mt][nt][2 * half + 1] + bb1, 0.f));
+        }
+      }
+    for (int u = tid; u < O_slice * (FS / 8); u += kThreads) {
+      const int o = u / (FS / 8), q = u % (FS / 8);
+      *reinterpret_cast<uint4*>(sW2 + o * kHS + q * 8) = *reinterpret_cast<const uint4*>(
+          w2 + static_cast<long long>(o0 + o) * F + f0 + q * 8);
+    }
+    __syncthreads();
+
+    // ---- phase 2: y += h w2^T, each warp 16 pixels x O_slice channels ----
+#pragma unroll 4
+    for (int ks = 0; ks < FS / 16; ++ks) {
+      uint32_t af[4];
+      ldsm_x4(af, sH + (warp * 16 + (lane & 15)) * kHS + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int nt = 0; nt < kMaxNT2; ++nt) {
+        if (nt < nt2) {
+          uint32_t b0, b1r;
+          ldsm_x2(b0, b1r, sW2 + (nt * 8 + (lane & 7)) * kHS + ks * 16 +
+                               ((lane >> 3) & 1) * 8);
+          mma_16816(acc2[nt], af, b0, b1r);
+        }
       }
     }
-  }
+  }  // feature slices
 
   // ---- + b2, store the first O channels of the pixels inside the row ----
 #pragma unroll
@@ -246,7 +263,7 @@ dpt_tail_kernel(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
     for (int nt = 0; nt < kMaxNT2; ++nt) {
       if (nt < nt2) {
-        const int col = nt * 8 + 2 * t;
+        const int col = o0 + nt * 8 + 2 * t;
         if (col < O) dst[col] = __float2bfloat16_rn(acc2[nt][2 * half] + b2[col]);
         if (col + 1 < O)
           dst[col + 1] = __float2bfloat16_rn(acc2[nt][2 * half + 1] + b2[col + 1]);
@@ -255,38 +272,49 @@ dpt_tail_kernel(const __nv_bfloat16* __restrict__ a,
   }
 }
 
-template <int F>
+template <int FS, bool kMulti>
 int launch(const void* a, const void* m, const void* w1, const void* b1,
            const void* w2, const void* b2, void* out, int N, int H, int W,
-           int C, int O, int O_pad, cudaStream_t stream) {
-  const int phase1 = (3 * (kBM + 2) * kXS + 2 * F * kXS) * 2;
-  const int phase2 = (kBM + O_pad) * (F + 8) * 2;
+           int C, int F, int O, int O_pad, cudaStream_t stream) {
+  const int o_slice = O_pad < kMaxNT2 * 8 ? O_pad : kMaxNT2 * 8;
+  const int n_os = O_pad / o_slice;
+  const int phase1 = (3 * (kBM + 2) * kXS + 2 * FS * kXS) * 2;
+  const int phase2 = (kBM + o_slice) * (FS + 8) * 2;
   const int smem = phase1 > phase2 ? phase1 : phase2;
   cudaError_t err = cudaFuncSetAttribute(
-      dpt_tail_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dpt_tail_kernel<FS, kMulti>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((W + kBM - 1) / kBM, H, N);
-  dpt_tail_kernel<F><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(((W + kBM - 1) / kBM) * n_os, H, N);
+  dpt_tail_kernel<FS, kMulti><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(m),
       static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1),
       static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
-      static_cast<__nv_bfloat16*>(out), H, W, C, O, O_pad);
+      static_cast<__nv_bfloat16*>(out), H, W, C, F, O, o_slice, n_os);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // a, m: (N, H, W, C) bf16 (m may be null), C % 32 == 0; w1: (9, F, C) bf16;
-// b1: (F,) float32; w2: (O_pad, F) bf16 with O_pad % 8 == 0 and O <= O_pad
-// <= 128; b2: (O_pad,) float32; out: (N, H, W, O) bf16. F is 128 or 256.
-// All contiguous and 16-byte aligned. Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for an F it was not built for).
+// b1: (F,) float32; w2: (O_pad, F) bf16 and b2: (O_pad,) float32, zero rows
+// past O, with O_pad a multiple of 8 when it is at most 128 and a multiple
+// of 128 above; out: (N, H, W, O) bf16. F is a multiple of 128. All
+// contiguous and 16-byte aligned. Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for an F or O_pad it does not
+// take).
 extern "C" int vs_dpt_tail(const void* a, const void* m, const void* w1,
                            const void* b1, const void* w2, const void* b2,
                            void* out, int N, int H, int W, int C, int F, int O,
                            int O_pad, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F == 256) return launch<256>(a, m, w1, b1, w2, b2, out, N, H, W, C, O, O_pad, s);
-  if (F == 128) return launch<128>(a, m, w1, b1, w2, b2, out, N, H, W, C, O, O_pad, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int slice = kMaxNT2 * 8;
+  if (F <= 0 || F % 128 || O_pad % 8 || O_pad < O ||
+      (O_pad > slice && O_pad % slice))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (F == 256)
+    return launch<256, false>(a, m, w1, b1, w2, b2, out, N, H, W, C, F, O, O_pad, s);
+  if (F == 128)
+    return launch<128, false>(a, m, w1, b1, w2, b2, out, N, H, W, C, F, O, O_pad, s);
+  return launch<128, true>(a, m, w1, b1, w2, b2, out, N, H, W, C, F, O, O_pad, s);
 }

@@ -21,6 +21,11 @@
 // of shared memory are padded to 72 elements so that the fragment loads hit
 // 32 distinct banks. No cp.async pipelining, TMA or wgmma yet: the loads and
 // the products of one tile do not overlap.
+//
+// For training the kernel also writes each row's log-sum-exp of the scaled
+// logits, lse = log(sum_j exp(q.k_j / 8)), in the natural-log domain, float32
+// (B, H, Sq): the backward (flash_attn_bwd.cu) recomputes P = exp(S - lse)
+// from it. A null lse pointer skips the store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +63,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse,  // (B, H, Sq) or null
                  int Sq, int Sk, int H, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 sQ[kBM * kPad];
   __shared__ __align__(16) __nv_bfloat16 sK[kBN * kPad];
@@ -200,6 +206,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int row0 = q0 + wr + g;
   const int row1 = row0 + 8;
   __nv_bfloat16* ob = o + (long long)b * Sq * tok + h * kD;
+  if (lse != nullptr && t == 0) {  // the four threads of a row group agree
+    float* lb = lse + ((long long)b * H + h) * Sq;
+    const float ln2 = 0.6931471805599453f;
+    if (row0 < Sq) lb[row0] = (m_run[0] + log2f(l_run[0])) * ln2;
+    if (row1 < Sq) lb[row1] = (m_run[1] + log2f(l_run[1])) * ln2;
+  }
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
     const int c = dt * 8 + t * 2;
@@ -215,15 +227,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }  // namespace
 
 // q, o: (B, Sq, H, 64) bf16; k, v: (B, Sk, H, 64) bf16; all contiguous and
-// 16-byte aligned. Launches on `stream` and returns cudaGetLastError().
+// 16-byte aligned; lse: (B, H, Sq) float32, or null when no gradient is
+// needed. Launches on `stream` and returns cudaGetLastError().
 extern "C" int vs_flash_attn_fwd(const void* q, const void* k, const void* v,
-                                 void* o, int B, int Sq, int Sk, int H,
-                                 void* stream) {
+                                 void* o, void* lse, int B, int Sq, int Sk,
+                                 int H, void* stream) {
   const dim3 grid((Sq + kBM - 1) / kBM, H, B);
   const float scale_log2 = 1.4426950408889634f * 0.125f;  // log2(e)/sqrt(64)
   flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Sk, H, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), Sq, Sk, H, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

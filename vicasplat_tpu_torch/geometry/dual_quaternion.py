@@ -1,6 +1,6 @@
 """Dual-quaternion rigid motions (port of
-vicasplat_tpu/geometry/dual_quaternion.py, the parts the camera decode and
-se3 use). The 8-vector layout is [q_r(xyzw), q_d(xyzw)].
+vicasplat_tpu/geometry/dual_quaternion.py, the parts the camera decode, se3
+and the camera loss use). The 8-vector layout is [q_r(xyzw), q_d(xyzw)].
 """
 from __future__ import annotations
 
@@ -23,6 +23,31 @@ def from_dq_array(arr: torch.Tensor, normalize: bool = False) -> DualQuaternion:
         n = qnorm(qr)
         qr, qd = qr / n, qd / n
     return DualQuaternion(qr, qd)
+
+
+def to_dq_array(dq: DualQuaternion) -> torch.Tensor:
+    return torch.cat([dq.qr, dq.qd], dim=-1)
+
+
+def identity(shape=(), dtype=torch.float32, device=None) -> DualQuaternion:
+    qr = torch.zeros(*shape, 4, dtype=dtype, device=device)
+    qr[..., 3] = 1.0
+    return DualQuaternion(qr, torch.zeros(*shape, 4, dtype=dtype, device=device))
+
+
+def dqmul(a: DualQuaternion, b: DualQuaternion) -> DualQuaternion:
+    """(a_r + eps a_d)(b_r + eps b_d)."""
+    return DualQuaternion(qmul(a.qr, b.qr), qmul(a.qr, b.qd) + qmul(a.qd, b.qr))
+
+
+def quaternion_conjugate(dq: DualQuaternion) -> DualQuaternion:
+    return DualQuaternion(qconj(dq.qr), qconj(dq.qd))
+
+
+def normalized(dq: DualQuaternion) -> DualQuaternion:
+    """Both parts divided by |q_r|."""
+    n = qnorm(dq.qr)
+    return DualQuaternion(dq.qr / n, dq.qd / n)
 
 
 def from_quat_pose(arr: torch.Tensor) -> DualQuaternion:

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from . import dual_quaternion as dqlib
+from .quaternion import matrix_to_quat, qnormalize
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:
@@ -58,6 +59,12 @@ def camera_matrix_from_dq_array(dq_array: torch.Tensor,
                                 normalize: bool = False) -> torch.Tensor:
     return dqlib.homogeneous_matrix(
         dqlib.from_dq_array(dq_array, normalize=normalize))
+
+
+def camera_dq_array_from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) + translation (..., 3) -> dq array (..., 8)."""
+    q = qnormalize(matrix_to_quat(R), eps=0.0)
+    return dqlib.to_dq_array(dqlib.from_quat_pose(torch.cat([q, t], dim=-1)))
 
 
 def intrinsics_from_fov(fov: torch.Tensor) -> torch.Tensor:

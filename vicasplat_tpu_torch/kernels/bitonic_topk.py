@@ -19,6 +19,8 @@ from . import build
 
 MAX_SMEM_BYTES = 227 * 1024  # shared memory one block may use on Hopper
 U32_MAX = 0xFFFFFFFF
+# words, out, rows, m, keep, stream
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def to_u32_bits(values: torch.Tensor) -> torch.Tensor:
@@ -68,9 +70,7 @@ def bitonic_topk(words: torch.Tensor, keep: int) -> torch.Tensor:
     if not words.is_contiguous():
         raise ValueError("words are not contiguous")
     out = torch.empty(rows, keep, dtype=torch.int32, device=words.device)
-    fn = build.load("bitonic_topk").vs_bitonic_topk
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.entry("bitonic_topk", "vs_bitonic_topk", _ARGTYPES)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(words.data_ptr(), out.data_ptr(), rows, m, keep, stream)

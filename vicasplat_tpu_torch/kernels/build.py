@@ -22,6 +22,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple, object] = {}
 build_logs: dict[str, str] = {}  # nvcc's stderr (ptxas register report)
 
 
@@ -86,3 +87,16 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _loaded[name] = ctypes.CDLL(str(build(name)))
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """The C entry point `symbol` of `csrc/<name>.cu`, with its argument
+    types and its int (cudaError_t) result type set once, when it is first
+    asked for."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
+    return fn

@@ -17,6 +17,9 @@ from . import build
 
 PAYLOAD_COLS = 16
 MAX_SMEM_BYTES = 227 * 1024  # shared memory one block may use on Hopper
+# payload, 7 ints (tiles, K, chunk, tile_px, tw, H, W), bg, rgb, depth,
+# alpha, stream
+_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
 
 
 def composite_launch(payload: torch.Tensor, image_shape: tuple, tile_px: int,
@@ -45,9 +48,7 @@ def composite_launch(payload: torch.Tensor, image_shape: tuple, tile_px: int,
     depth = payload.new_empty(H, W)
     alpha = payload.new_empty(H, W)
     bg = background.detach().to(payload.device, torch.float32).contiguous()
-    fn = build.load("composite").vs_composite
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
+    fn = build.entry("composite", "vs_composite", _ARGTYPES)
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(payload.data_ptr(), num_tiles, K, chunk, tile_px, tw, H, W,

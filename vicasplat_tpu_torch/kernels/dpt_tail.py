@@ -18,8 +18,10 @@ import torch.nn.functional as F
 from . import build
 
 CHANNEL_CHUNK = 32      # input channels the kernel stages at a time
-FEATURES = (128, 256)   # F the kernel is built for
-MAX_OUT = 128           # O the second product holds
+FEATURE_SLICE = 128     # F runs in slices of this many features
+OUT_SLICE = 128         # O above this runs in slices of this many channels
+# a, m, w1, b1, w2, b2, out, N, H, W, C, F, O, O_pad, stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def dpt_tail_reference(a: torch.Tensor, m: Optional[torch.Tensor],
@@ -66,10 +68,8 @@ def _launch(a, m, w1, b1, w2, b2):
     Fd, O = w1.shape[0], w2.shape[0]
     if C % CHANNEL_CHUNK:
         raise ValueError(f"C={C} is not a multiple of {CHANNEL_CHUNK}")
-    if Fd not in FEATURES:
-        raise ValueError(f"F={Fd}; the kernel is built for F in {FEATURES}")
-    if O > MAX_OUT:
-        raise ValueError(f"O={O} exceeds {MAX_OUT}")
+    if Fd % FEATURE_SLICE:
+        raise ValueError(f"F={Fd} is not a multiple of {FEATURE_SLICE}")
     if H > 65535 or N > 65535:
         raise ValueError(f"N={N}, H={H} exceed the grid")
     dev = a.device
@@ -77,16 +77,15 @@ def _launch(a, m, w1, b1, w2, b2):
     w1t = w1.permute(2, 3, 0, 1).reshape(9, Fd, C).contiguous()
     b1f = (torch.zeros(Fd, device=dev) if b1 is None
            else b1.to(torch.float32).contiguous())
-    o_pad = -(-O // 8) * 8  # the mma width, not 128
+    # the mma width, or whole slices of OUT_SLICE channels above that
+    o_pad = -(-O // 8) * 8 if O <= OUT_SLICE else -(-O // OUT_SLICE) * OUT_SLICE
     w2p = torch.zeros(o_pad, Fd, dtype=torch.bfloat16, device=dev)
     w2p[:O] = w2.reshape(O, Fd)
     b2p = torch.zeros(o_pad, device=dev)
     if b2 is not None:
         b2p[:O] = b2.to(torch.float32)
     out = torch.empty(N, H, W, O, dtype=torch.bfloat16, device=dev)
-    fn = build.load("dpt_tail").vs_dpt_tail
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.entry("dpt_tail", "vs_dpt_tail", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(a.data_ptr(), None if m is None else m.data_ptr(), w1t.data_ptr(),
@@ -133,8 +132,7 @@ def fused_dpt_tail(a: torch.Tensor, m: Optional[torch.Tensor], w1: torch.Tensor,
     channels-last activations -> (N, H, W, O); differentiable.
 
     A CUDA tensor launches the kernel (bf16 activations and weights, C % 32
-    == 0, F in (128, 256), O <= 128); a CPU tensor takes
-    `dpt_tail_reference`.
+    == 0, F % 128 == 0, any O); a CPU tensor takes `dpt_tail_reference`.
     """
     _check(a, m, w1, b1, w2, b2)
     return _DptTail.apply(a, m, w1, b1, w2, b2)

@@ -1,9 +1,14 @@
-"""K1: forward flash attention (csrc/flash_attn.cu) and its plain version.
+"""K1: flash attention, forward (csrc/flash_attn.cu) and backward
+(csrc/flash_attn_bwd.cu), with their plain versions.
 
 Replaces the Pallas TPU flash-attention kernel behind
 `vicasplat_tpu/models/vicanet.py:242` (`_flash_unmasked`), which carries the
-mix decoder's joint image attention. The CUDA kernel is forward only; a
-CUDA tensor that requires grad raises until the backward kernel is written.
+mix decoder's joint image attention, and its library VJP
+(`_flash_attention_bwd_dkv`, `_flash_attention_bwd_dq`). A CUDA tensor that
+needs a gradient runs through `_FlashAttention`: the forward kernel also
+writes each row's log-sum-exp (natural log, float32 (B, H, Sq)), and the
+backward kernels form dQ, dK and dV from it. A CPU tensor takes
+`attention_reference`, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -15,6 +20,10 @@ import torch
 from . import build
 
 HEAD_DIM = 64
+# q, k, v, o, lse, B, Sq, Sk, H, stream
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -26,6 +35,30 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor,
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
     s = qf @ kf.transpose(-1, -2) / math.sqrt(q.shape[-1])
     return (torch.softmax(s, dim=-1) @ vf).transpose(1, 2)
+
+
+def attention_lse_reference(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The row log-sum-exp of q k^T / sqrt(d) in float32: (B, H, Sq)."""
+    s = q.float().transpose(1, 2) @ k.float().transpose(1, 2).transpose(-1, -2)
+    return torch.logsumexp(s / math.sqrt(q.shape[-1]), dim=-1)
+
+
+def attention_backward_reference(q, k, v, o, lse, do):
+    """(dQ, dK, dV) in float32 from the backward kernels' formulas:
+    P = exp(S - lse), D = rowsum(dO o O), dV = P^T dO, dP = dO V^T,
+    dS = P o (dP - D), dQ = dS K / sqrt(d), dK = dS^T Q / sqrt(d).
+
+    q, o, do: (B, Sq, H, D); k, v: (B, Sk, H, D); lse: (B, H, Sq).
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, dof = (x.float().transpose(1, 2) for x in (q, k, v, o, do))
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse.float()[..., None])
+    delta = (dof * of).sum(-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dq = ds @ kf * scale
+    dk = ds.transpose(-1, -2) @ qf * scale
+    return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
 
 
 def _check_shapes(q, k, v):
@@ -40,47 +73,95 @@ def _check_shapes(q, k, v):
         raise ValueError("q, k and v lie on different devices")
 
 
-def _check_cuda(q, k, v):
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"head dim {q.shape[-1]} != {HEAD_DIM}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _check_cuda(**tensors):
+    for name, x in tensors.items():
+        if x.shape[-1] != HEAD_DIM:
+            raise ValueError(f"{name}: head dim {x.shape[-1]} != {HEAD_DIM}")
         if x.dtype != torch.bfloat16:
             raise TypeError(f"{name} is {x.dtype}; the kernel takes bfloat16")
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-        if x.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "flash_attention has no backward kernel yet")
+
+
+def _forward(q, k, v, with_lse: bool):
+    """Launch the forward kernel: out, and lse when asked (else None)."""
+    B, Sq, H, _ = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    fn = build.entry("flash_attn", "vs_flash_attn_fwd", _FWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, Sq, k.shape[1], H,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attn launch failed: cudaError {rc}")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, o, lse, do):
+    """(dQ, dK, dV) in bf16 through the backward kernels: one call launches
+    the D pass, the dK/dV kernel and the dQ kernel. CUDA tensors only."""
+    _check_cuda(q=q, k=k, v=v, o=o, do=do)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("lse must be contiguous float32 (B, H, Sq)")
+    B, Sq, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, Sq):
+        raise ValueError("o and dO must match q, and lse be (B, H, Sq)")
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = build.entry("flash_attn_bwd", "vs_flash_attn_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], H, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_bwd launch failed: cudaError {rc}")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward and backward both through the kernels; the backward gets dO
+    in whatever layout autograd hands it and makes it contiguous."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = _forward(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_attention_backward(q, k, v, o, lse,
+                                        do.to(torch.bfloat16).contiguous())
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Unmasked attention over (B, S, H, D) tensors, Sq != Sk allowed.
 
-    A CUDA tensor launches the kernel (bf16, contiguous, D = 64); a CPU
-    tensor takes `attention_reference`, cast back to q's dtype.
+    A CUDA tensor launches the forward kernel (bf16, contiguous, D = 64),
+    and, when a gradient is needed, runs the backward kernels in the
+    backward; a CPU tensor takes `attention_reference`, cast back to q's
+    dtype, differentiable by autograd.
     """
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return attention_reference(q, k, v).to(q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention does not run on {q.device}")
-    _check_cuda(q, k, v)
-    B, Sq, H, _ = q.shape
-    out = torch.empty_like(q)
-    fn = build.load("flash_attn").vs_flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Sq, k.shape[1], H, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attn launch failed: cudaError {rc}")
-    flash_attention.launches += 1
-    return out
+    _check_cuda(q=q, k=k, v=v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v)
+    return _forward(q, k, v, with_lse=False)[0]
 
 
-flash_attention.launches = 0  # kernel launches since the last reset
+flash_attention.launches = 0           # forward kernel launches
+flash_attention_backward.launches = 0  # backward calls (3 kernels each)

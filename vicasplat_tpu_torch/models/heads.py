@@ -31,9 +31,13 @@ class DPTConfig:
     feature_dim: int = 256
     last_dim: int = 128
     num_channels: int = 3
+    patch_size: int = 16  # carried for the JAX config; the trunk reads grid_hw
     head_type: str = "regression"  # or "gs_params"
     use_input_merger: bool = False
     tail_backend: str = "xla"  # "xla" | "pallas" | "auto"
+    # training from random init: a LayerScale (init 0.1) on each RCU's
+    # residual branch and a channel LayerNorm on the trunk's output
+    stabilize: bool = False
 
     def __post_init__(self):
         if self.tail_backend not in TAIL_BACKENDS:
@@ -46,23 +50,29 @@ def _conv(c_in, c_out, k, bias=True, stride=1):
 
 
 class RCU(nn.Module):
-    """Residual conv unit: x + conv2(relu(conv1(relu(x))))."""
+    """Residual conv unit: x + ls * conv2(relu(conv1(relu(x)))), the
+    LayerScale `ls` only when stabilized."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, stabilize: bool = False):
         super().__init__()
         self.conv1 = _conv(features, features, 3)
         self.conv2 = _conv(features, features, 3)
+        if stabilize:
+            self.ls = nn.Parameter(torch.full((features,), 0.1))
 
     def forward(self, x, dtype):
         h = conv2d(self.conv1, F.relu(x), dtype)
-        return conv2d(self.conv2, F.relu(h), dtype) + x
+        h = conv2d(self.conv2, F.relu(h), dtype)
+        if hasattr(self, "ls"):
+            h = h * self.ls.to(h.dtype)
+        return h + x
 
 
 class Fusion(nn.Module):
-    def __init__(self, features: int):
+    def __init__(self, features: int, stabilize: bool = False):
         super().__init__()
-        self.rcu1 = RCU(features)
-        self.rcu2 = RCU(features)
+        self.rcu1 = RCU(features, stabilize)
+        self.rcu2 = RCU(features, stabilize)
         self.out_conv = _conv(features, features, 1)
 
     def forward(self, path, skip, dtype):
@@ -89,7 +99,9 @@ class DPT(nn.Module):
         self.down3 = _conv(ld[3], ld[3], 3, stride=2)
         for i in range(4):
             setattr(self, f"scratch{i}", _conv(ld[i], fd, 3, bias=False))
-            setattr(self, f"refinenet{i + 1}", Fusion(fd))
+            setattr(self, f"refinenet{i + 1}", Fusion(fd, cfg.stabilize))
+        if cfg.stabilize:
+            self.trunk_norm = nn.LayerNorm(fd, eps=1e-6)
         if cfg.head_type == "regression":
             self.head = nn.ModuleDict({
                 "conv1": _conv(fd, fd // 2, 3),
@@ -122,7 +134,20 @@ class DPT(nn.Module):
         p4 = self.refinenet4(l3, None, dtype)[:, : l2.shape[1], : l2.shape[2]]
         p3 = self.refinenet3(p4, l2, dtype)
         p2 = self.refinenet2(p3, l1, dtype)
-        return self.refinenet1(p2, l0, dtype)
+        p1 = self.refinenet1(p2, l0, dtype)
+        if hasattr(self, "trunk_norm"):
+            p1 = _channel_norm(self.trunk_norm, p1)
+        return p1
+
+
+def _channel_norm(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over channels with float32 statistics (biased variance, eps
+    1e-6 inside the rsqrt), learned affine, returned in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + 1e-6)
+    return (y * mod.weight + mod.bias).to(x.dtype)
 
 
 def _cast(conv: nn.Conv2d, dtype):
@@ -186,6 +211,25 @@ def postprocess_pts3d_exp(raw_xyz: torch.Tensor, vmin: float = 0.0,
 def postprocess_conf_exp(raw: torch.Tensor, vmin: float = 1.0,
                          vmax: float = float("inf")) -> torch.Tensor:
     return vmin + torch.exp(raw.float()).clamp(max=vmax - vmin)
+
+
+class LinearHead(nn.Module):
+    """The linear pixel-shuffle head: relu -> linear -> patch x patch pixels."""
+
+    def __init__(self, dim_in: int, patch_size: int, num_channels: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, patch_size ** 2 * num_channels)
+
+
+def linear_head(mod: LinearHead, tokens: torch.Tensor, grid_hw: tuple,
+                patch_size: int, num_channels: int, dtype) -> torch.Tensor:
+    """tokens (B, N, C) -> (B, H, W, num_channels) by pixel shuffle."""
+    gh, gw = grid_hw
+    x = linear(mod.proj, F.relu(tokens), dtype)
+    b = x.shape[0]
+    x = x.reshape(b, gh, gw, patch_size, patch_size, num_channels)
+    return x.transpose(2, 3).reshape(b, gh * patch_size, gw * patch_size,
+                                     num_channels)
 
 
 class CameraHead(nn.Module):

@@ -10,16 +10,29 @@ camera q/k) and a cross-neighbour attention term.
 The decoder's joint image attention runs through kernel K1
 (kernels/flash_attn.py) when `use_flash_attention` is set; on a CPU tensor
 K1's wrapper takes its plain version.
+
+With `remat=True` each encoder and decoder block runs under
+`torch.utils.checkpoint` and is recomputed in the backward;
+`remat_policy="dots"` keeps the products of the linear layers (aten mm and
+addmm, no batch dimension), the counterpart of JAX's
+`dots_with_no_batch_dims_saveable`, and recomputes the rest, the batched
+attention products included.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..kernels.flash_attn import flash_attention
 from ..ops import rope as rope_lib
@@ -226,6 +239,29 @@ class DecBlock(nn.Module):
         return img, cam
 
 
+REMAT_POLICIES = (None, "dots")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _block_runner(remat: bool, remat_policy: Optional[str]):
+    """Call a block directly, or under checkpoint with the policy's saves."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={remat_policy!r} is not one of "
+                         f"{REMAT_POLICIES}")
+    if not remat:
+        return lambda blk, *args: blk(*args)
+    kw = {}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots)
+    return lambda blk, *args: checkpoint(blk, *args, use_reentrant=False, **kw)
+
+
 class PatchEmbed(nn.Module):
     def __init__(self, patch: int, dim: int):
         super().__init__()
@@ -272,7 +308,8 @@ class VicaNet(nn.Module):
 
     def forward(self, images: torch.Tensor,
                 intrinsics: Optional[torch.Tensor] = None, *,
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, remat: bool = False,
+                remat_policy: Optional[str] = None):
         """images (B, T, H, W, 3) in [-1, 1]; intrinsics (B, T, 3, 3).
 
         Returns (x_final, camera_extrinsic_tokens, camera_intrinsic_tokens,
@@ -280,6 +317,7 @@ class VicaNet(nn.Module):
         outputs (the last one normed), each (B, T, n_patches, C).
         """
         cfg = self.cfg
+        run = _block_runner(remat, remat_policy)
         dev = images.device
         B, T, Himg, Wimg, _ = images.shape
         gh, gw = Himg // cfg.patch_size, Wimg // cfg.patch_size
@@ -298,7 +336,7 @@ class VicaNet(nn.Module):
 
         cos_e, sin_e = _spatial_rope_tables(cfg, cfg.enc_head_dim, (gh, gw), dev)
         for blk in self.enc_blocks:
-            x = blk(x, cos_e, sin_e, dtype)
+            x = run(blk, x, cos_e, sin_e, dtype)
         enc_out = layernorm(self.enc_norm, x).reshape(B, T, N, cfg.enc_embed_dim)
 
         img = linear(self.decoder_embed, enc_out, dtype)
@@ -318,7 +356,7 @@ class VicaNet(nn.Module):
         tables = (cos_s, sin_s, cos_t, sin_t, cam_mask)
         inter = []
         for blk in self.dec_blocks:
-            img, cam = blk(img, cam, tables, dtype)
+            img, cam = run(blk, img, cam, tables, dtype)
             inter.append(img)
 
         intermediates = [enc_out] + inter

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -22,9 +23,11 @@ from .heads import (
     DPT,
     CameraHead,
     DPTConfig,
+    LinearHead,
     camera_head,
     dpt_gs_head,
     dpt_regression_head,
+    linear_head,
     postprocess_conf_exp,
     postprocess_pts3d_exp,
 )
@@ -47,9 +50,15 @@ class VicaSplatConfig:
     predict_opacity: bool = False
     predict_conf: bool = False
     camera_type: str = "dq"  # "dq" | "qt"
+    gs_center_head_type: str = "dpt"    # "dpt" | "linear"
+    gs_param_head_type: str = "dpt_gs"  # "dpt" | "dpt_gs" | "linear"
+    input_mean: tuple = (0.5, 0.5, 0.5)  # normalize_images
+    input_std: tuple = (0.5, 0.5, 0.5)
     pts3d_bounds: tuple = (0.0, float("inf"))
     # DPT tails: "xla" | "pallas" (the fused tail K3) | "auto" (by device)
     head_tail_backend: str = "xla"
+    # DPT heads for training from random init (DPTConfig.stabilize)
+    dpt_stabilize: bool = False
 
     @property
     def camera_extrinsic_channels(self) -> int:
@@ -64,15 +73,17 @@ class VicaSplatConfig:
         return DPTConfig(
             hook_dims=(bb.enc_embed_dim,) + (bb.dec_embed_dim,) * 3,
             num_channels=3 + (1 if self.predict_conf else 0),
-            head_type="regression", tail_backend=self.head_tail_backend)
+            patch_size=bb.patch_size, head_type="regression",
+            tail_backend=self.head_tail_backend, stabilize=self.dpt_stabilize)
 
     def gs_dpt(self) -> DPTConfig:
         bb = self.backbone
         return DPTConfig(
             hook_dims=(bb.enc_embed_dim,) + (bb.dec_embed_dim,) * 3,
             num_channels=self.gaussian_adapter.raw_gs_dim,
-            head_type="gs_params", use_input_merger=True,
-            tail_backend=self.head_tail_backend)
+            patch_size=bb.patch_size, head_type="gs_params",
+            use_input_merger=True, tail_backend=self.head_tail_backend,
+            stabilize=self.dpt_stabilize)
 
 
 class VicaSplat(nn.Module):
@@ -83,8 +94,21 @@ class VicaSplat(nn.Module):
         self.cfg = cfg
         bb = cfg.backbone
         self.backbone = VicaNet(bb)
-        self.center_head = DPT(cfg.center_dpt())
-        self.gaussian_param_head = DPT(cfg.gs_dpt())
+        center, gs = cfg.center_dpt(), cfg.gs_dpt()
+        if cfg.gs_center_head_type == "dpt":
+            self.center_head = DPT(center)
+        elif cfg.gs_center_head_type == "linear":
+            self.center_head = LinearHead(bb.dec_embed_dim, bb.patch_size,
+                                          center.num_channels)
+        else:
+            raise ValueError(f"gs_center_head_type={cfg.gs_center_head_type!r}")
+        if cfg.gs_param_head_type in ("dpt", "dpt_gs"):
+            self.gaussian_param_head = DPT(gs)
+        elif cfg.gs_param_head_type == "linear":
+            self.gaussian_param_head = LinearHead(bb.dec_embed_dim, bb.patch_size,
+                                                  gs.num_channels)
+        else:
+            raise ValueError(f"gs_param_head_type={cfg.gs_param_head_type!r}")
         self.camera_extrinsic_head = CameraHead(bb.dec_embed_dim,
                                                 cfg.camera_extrinsic_channels)
         if not bb.use_intrinsic_embedding:
@@ -135,16 +159,28 @@ def decode_camera(pred: torch.Tensor, camera_type: str):
 
 
 def vicasplat_forward(model: VicaSplat, context: dict, global_step: int = 0, *,
-                      dtype=torch.bfloat16) -> dict:
+                      distill: bool = False, compute_viewspace_depth: bool = False,
+                      dtype=torch.bfloat16, remat: bool = False,
+                      remat_policy: Optional[str] = None) -> dict:
     """Frames -> Gaussians and poses. Heads run in landscape: a portrait
-    batch (H > W) has its token grids and head outputs transposed."""
+    batch (H > W) has its token grids and head outputs transposed.
+
+    `remat` recomputes each backbone block in the backward
+    (`torch.utils.checkpoint`); `remat_policy="dots"` keeps the linear
+    layers' products. `distill` and `compute_viewspace_depth` serve the
+    distillation phases, whose teacher is not ported: they raise."""
+    if distill or compute_viewspace_depth:
+        raise NotImplementedError(
+            "distill and compute_viewspace_depth wait for the distillation "
+            "teacher, which is not ported")
     cfg = model.cfg
     bb = cfg.backbone
     images = context["image"]
     B, T, H, W, _ = images.shape
 
     _, camera_embeds, global_embeds, interms = model.backbone(
-        images, context.get("intrinsics"), dtype=dtype)
+        images, context.get("intrinsics"), dtype=dtype, remat=remat,
+        remat_policy=remat_policy)
 
     pred_raw = camera_head(model.camera_extrinsic_head, camera_embeds, dtype)
     pred_extrins, pred_mats = decode_camera(pred_raw, cfg.camera_type)
@@ -179,15 +215,26 @@ def vicasplat_forward(model: VicaSplat, context: dict, global_step: int = 0, *,
     if portrait:
         head_images = head_images.transpose(1, 2)
 
-    center_out = head_out(dpt_regression_head(model.center_head, hook_tokens,
-                                              grid_hw, dtype))
+    if cfg.gs_center_head_type == "dpt":
+        center_out = dpt_regression_head(model.center_head, hook_tokens, grid_hw,
+                                         dtype)
+    else:
+        center_out = linear_head(model.center_head, hook_tokens[-1], grid_hw,
+                                 bb.patch_size, cfg.center_dpt().num_channels, dtype)
+    center_out = head_out(center_out)
     gs_centers = postprocess_pts3d_exp(center_out[..., :3],
                                        *cfg.pts3d_bounds).reshape(B, T, H, W, 3)
     conf = (postprocess_conf_exp(center_out[..., 3]).reshape(B, T, H, W)
             if cfg.predict_conf else None)
 
-    gs_params_out = head_out(dpt_gs_head(model.gaussian_param_head, hook_tokens,
-                                         grid_hw, head_images, dtype))
+    if cfg.gs_param_head_type in ("dpt", "dpt_gs"):
+        gs_params_out = dpt_gs_head(model.gaussian_param_head, hook_tokens,
+                                    grid_hw, head_images, dtype)
+    else:
+        gs_params_out = linear_head(model.gaussian_param_head, hook_tokens[-1],
+                                    grid_hw, bb.patch_size,
+                                    cfg.gaussian_adapter.raw_gs_dim, dtype)
+    gs_params_out = head_out(gs_params_out)
     raw_gaussians = torch.cat(
         [gs_centers, gs_params_out.reshape(B, T, H, W, -1).float()], dim=-1)
     om = cfg.opacity_mapping
@@ -204,3 +251,10 @@ def vicasplat_forward(model: VicaSplat, context: dict, global_step: int = 0, *,
         gaussian_centers=gs_centers,
         confidence=conf,
     )
+
+
+def normalize_images(images_01: torch.Tensor, cfg: VicaSplatConfig) -> torch.Tensor:
+    """The encoder's data shim: [0, 1] images -> (x - input_mean) / input_std."""
+    mean = torch.tensor(cfg.input_mean, dtype=images_01.dtype, device=images_01.device)
+    std = torch.tensor(cfg.input_std, dtype=images_01.dtype, device=images_01.device)
+    return (images_01 - mean) / std

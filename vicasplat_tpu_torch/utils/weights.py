@@ -8,7 +8,12 @@ joined by dots, with three rules:
   `w` (kh, kw, in, out), and a transposed-conv kernel (kh, kw, out, in),
   become `weight` (out, in, kh, kw) and (in, out, kh, kw): one permutation;
 - `b` becomes `bias` and a layer norm's `scale` becomes `weight`.
-Other leaves (the camera tokens) keep their names.
+Other leaves (the camera tokens, the LayerScales `ls`) keep their names.
+
+Any tree of the params' structure crosses the same way, a JAX gradient tree
+included (`state_dict_from_jax(grads)` gives the layout of `p.grad`).
+`jax_tree_from_state_dict` is the inverse, for comparing parameters after
+an optimizer step.
 """
 from __future__ import annotations
 
@@ -78,6 +83,39 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def jax_tree_from_state_dict(state: dict, template: dict) -> dict:
+    """The port's {key: tensor} -> nested dicts of float32 numpy arrays shaped
+    like `template` (a JAX param tree, or any tree of arrays with shapes):
+    the bridge's mapping backwards, stacked blocks stacked again."""
+
+    def leaf(path, shape):
+        key, perm = torch_key(path, len(shape))
+        a = state[key].detach().float().cpu().numpy()
+        return a.transpose(np.argsort(perm)) if perm is not None else a
+
+    def walk(node, path):
+        if not isinstance(node, dict):
+            return leaf(path, np.shape(node))
+        out = {}
+        for k, v in node.items():
+            if k in STACKED:  # one block's shapes, then each block's leaves
+                block = _map(lambda a: np.broadcast_to(0.0, np.shape(a)[1:]), v)
+                depth = np.shape(next(iter(_leaves(v))))[0]
+                out[k] = _stack([walk(block, path + [k, str(i)])
+                                 for i in range(depth)])
+            else:
+                out[k] = walk(v, path + [k])
+        return out
+
+    return walk(template, [])
+
+
+def _stack(blocks: list):
+    if isinstance(blocks[0], dict):
+        return {k: _stack([b[k] for b in blocks]) for k in blocks[0]}
+    return np.stack(blocks)
 
 
 def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
