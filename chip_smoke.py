@@ -5,7 +5,8 @@ Phases, each printing lines with their seconds:
   build     every kernel of the main paths by plain nvcc, one process per
             source, all started together (kernels/build.py), with ptxas's
             registers, shared memory and spills;
-  k1        K1 (flash attention) against its plain version at three shapes;
+  k1        K1 (flash attention) against its plain version at three shapes,
+            with one call's device time beside SDPA's by the profiler;
   flagship  the default path of bench.py: vicasplat_forward on 8 frames of
             256^2 in bf16 (ViT-L encoder, 12-block mix decoder, DPT heads,
             SH degree 4) from random weights made with a seeded
@@ -24,6 +25,12 @@ Phases, each printing lines with their seconds:
             backward at the decoder shape at batch 2, the encoder shape and
             a ragged one, within twice SDPA's bf16 backward error plus a
             floor, with the same four times;
+  tiny-f32  configs/experiment/_tiny_smoke.yaml's widths in float32 through
+            K1's float32 route: a forward against the same weights on the
+            CPU and one training step, with exact launch counts;
+  k1-f32    K1's float32 route (forward, lse, backward) against the
+            float32 plain versions at head dims 12, 16 and 64, and at the
+            tiny phase's shape, with the same four times;
   train     the flagship training step (configs/main.yaml with
             configs/experiment/re10k_8view.yaml: 2 x 8 context frames and
             12 target views of 256^2, bf16 compute over float32 parameters,
@@ -31,8 +38,12 @@ Phases, each printing lines with their seconds:
             cosine to 20,000 steps, clip 0.5) from seeded random weights:
             2 warm-up and 3 timed steps with exact launch counts, finite
             loss, logs and gradients, parameters unchanged by step 0 (lr 0)
-            and changed by step 1, one profiled step, and one gradient pass
-            with K1 swapped for its plain version (noise floor);
+            and changed by step 1; then one gradient pass of the whole loss
+            with K1, SDPA and plain attention at the same weights, K1's gap
+            to plain attention in each parameter group's gradient norm
+            within twice SDPA's plus a floor; one profiled step, and K1's
+            backward on step 0's own inputs against the float32 plain
+            backward;
   timing    both configurations in turns, medians of 5 after 2 warm-ups;
   profile   one forward and one render of each under torch.profiler;
   plain-k3  the accelerator forward against the same forward with K3's
@@ -84,6 +95,14 @@ GRAD_TOL = 1e-3
 # against the same reference, plus this floor (P and dS enter the products
 # rounded to bf16, 2^-9 relative)
 FLASH_BWD_FLOOR = 2e-3
+# K1's float32 route against the float32 plain versions, relative to each
+# tensor's largest entry: both compute in float32 (2^-24 a rounding), in
+# other orders over up to 2,064 keys, and the kernel's exp2 is within 2 ulp
+F32_TOL = 1e-4
+# the _tiny_smoke widths in float32 on the card against the CPU, relative to
+# each output's largest entry: float32 on both sides, summed in other orders
+# through 6 blocks, the DPT heads and the exp map of the means
+TINY_TOL = 1e-3
 H100_BF16_FLOPS = 989e12    # dense tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12  # HBM3
@@ -91,8 +110,8 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # alpha 4 (one exp), tests 2, weight and blend 9
 COMPOSITE_OPS = 25
 N_VIEWS = 12
-KERNELS = ("flash_attn", "flash_attn_bwd", "bitonic_topk", "composite",
-           "dpt_tail")
+KERNELS = ("flash_attn", "flash_attn_bwd", "flash_attn_f32", "bitonic_topk",
+           "composite", "dpt_tail")
 # the training step's batch, and the cuts the issue allows if it does not
 # fit: targets to 4 first (the JAX package's own flagship step), then batch 1
 TRAIN_SHAPES = ((2, 12), (2, 4), (1, 4))
@@ -160,16 +179,25 @@ def flash_phase(dev):
         flops = 4.0 * b * h * sq * sk * 64
         nbytes = 2.0 * 64 * h * b * (2 * sq + 2 * sk)  # q, k, v in, o out
         ms = cuda_ms(lambda: flash_attention(q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
         rows[label] = dict(
             shape=f"q ({b}, {sq}, {h}, 64), k/v ({b}, {sk}, {h}, 64) bf16",
             max_abs_err=err, ms=ms,
             plain_ms=cuda_ms(lambda: attention_reference(q, k, v), iters=5),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-            tflops=flops / ms * 1e-9)
+            library_ms=cuda_ms(library), tflops=flops / ms * 1e-9,
+            # back to back, the wrappers' host time can set these means:
+            # one call's device kernels, by the profiler
+            device_ms=profile_window(lambda: flash_attention(q, k, v))[1],
+            library_device_ms=profile_window(library)[1])
         rows[label]["bound_ms"], rows[label]["bound_by"] = bound(
             flops, H100_BF16_FLOPS, nbytes)
-        row_line("k1", t0, f"{label} ({rows[label]['tflops']:.1f} TFLOP/s)",
-                 rows[label], FLASH_TOL)
+        r = rows[label]
+        row_line("k1", t0, f"{label} ({r['tflops']:.1f} TFLOP/s; device "
+                 f"{r['device_ms']:.4f}, SDPA device {r['library_device_ms']:.4f})",
+                 r, FLASH_TOL)
     return rows
 
 
@@ -309,6 +337,25 @@ def tail_phase(args):
     return rows
 
 
+def flash_bwd_errors(what, got, ref, lib):
+    """Each of K1's dQ, dK, dV (`got`) against the float32 plain backward
+    (`ref`), relative to its largest entry, beside SDPA's bf16 backward
+    (`lib`, in SDPA's (B, H, S, D) layout); raises unless each is within
+    twice SDPA's error plus FLASH_BWD_FLOOR."""
+    errs = {}
+    for name, a, l, r in zip(("dq", "dk", "dv"), got, lib, ref):
+        l = l.transpose(1, 2)
+        scale = r.abs().max().item()
+        errs[name] = dict(abs=(a.float() - r).abs().max().item(),
+                          rel=(a.float() - r).abs().max().item() / scale,
+                          sdpa_rel=(l.float() - r).abs().max().item() / scale)
+    bad = [n for n, e in errs.items()
+           if not e["rel"] <= 2 * e["sdpa_rel"] + FLASH_BWD_FLOOR]
+    if bad:
+        raise AssertionError(f"{what}: {bad} exceed the noise floor: {errs}")
+    return errs
+
+
 def flash_bwd_phase(dev):
     """K1's backward (one call launches its D pass, dK/dV and dQ kernels)
     against the float32 plain backward from the same q, k, v, dO and the
@@ -343,7 +390,6 @@ def flash_bwd_phase(dev):
         def plain():
             return attention_backward_reference(q, k, v, o_ref, lse_ref, do)
 
-        ref = plain()
         xs = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
         out_lib = F.scaled_dot_product_attention(*xs)
         do_t = do.transpose(1, 2)
@@ -351,18 +397,7 @@ def flash_bwd_phase(dev):
         def library():
             return torch.autograd.grad(out_lib, xs, do_t, retain_graph=True)
 
-        lib = [x.transpose(1, 2) for x in library()]
-        errs = {}
-        for name, a, l, r in zip(("dq", "dk", "dv"), got, lib, ref):
-            scale = r.abs().max().item()
-            errs[name] = dict(abs=(a.float() - r).abs().max().item(),
-                              rel=(a.float() - r).abs().max().item() / scale,
-                              sdpa_rel=(l.float() - r).abs().max().item() / scale)
-        bad = [n for n, e in errs.items()
-               if not e["rel"] <= 2 * e["sdpa_rel"] + FLASH_BWD_FLOOR]
-        if bad:
-            raise AssertionError(f"K1 backward {label}: {bad} exceed the noise "
-                                 f"floor: {errs}")
+        errs = flash_bwd_errors(f"K1 backward {label}", got, plain(), library())
         lse_err = (lse - lse_ref).abs().max().item()
         if not lse_err < 1e-3:
             raise AssertionError(f"K1 forward's lse {label}: max abs err {lse_err}")
@@ -384,7 +419,7 @@ def flash_bwd_phase(dev):
         rows[label]["device_ms"] = profile_window(
             lambda: flash_attention_backward(q, k, v, o, lse, do))[1]
         rows[label]["library_device_ms"] = profile_window(library)[1]
-        del out_lib, xs, ref, lib
+        del out_lib, xs
         r = rows[label]
         phase("k1-bwd", t0, f"{label} {r['shape']}: relative errors " + ", ".join(
             f"{n} {e['rel']:.2e} (sdpa {e['sdpa_rel']:.2e}, tol "
@@ -397,57 +432,157 @@ def flash_bwd_phase(dev):
     return rows
 
 
-def train_batch(dev, B, V, size=256, T=8):
-    """A flagship training batch from a seed: images uniform in [0, 1],
-    frame-0-relative context poses with small random rotations (about 0.05
-    rad) and translations (about 0.1), targets drawn among the context
-    poses, near 1 and far 100."""
-    from vicasplat_tpu_torch.geometry.se3 import se3_exp
+def flash_f32_phase(dev, shapes):
+    """K1's float32 route (one forward launch and one backward call each)
+    against the float32 plain versions: out, lse, dQ, dK and dV within
+    F32_TOL of each tensor's largest entry, at each of `shapes` ({label: (b,
+    sq, sk, h, d)}); the forward and the backward timed beside the plain
+    versions and SDPA in float32."""
+    import torch.nn.functional as F
 
-    g = torch.Generator(device=dev).manual_seed(3)
-    tau = torch.randn(B, T, 6, generator=g, device=dev) * torch.tensor(
-        [0.1] * 3 + [0.05] * 3, device=dev)
-    tau[:, 0] = 0.0
-    ext = se3_exp(tau)
-    K = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]],
-                     device=dev).expand(B, T, 3, 3).contiguous()
-    pick = torch.randint(0, T, (B, V), generator=g, device=dev)
-
-    def view(image, e, k, n):
-        return {"image": image, "extrinsics": e, "intrinsics": k,
-                "near": torch.ones(B, n, device=dev),
-                "far": torch.full((B, n), 100.0, device=dev)}
-
-    return {
-        "context": view(torch.rand(B, T, size, size, 3, generator=g, device=dev),
-                        ext, K, T),
-        "target": view(torch.rand(B, V, size, size, 3, generator=g, device=dev),
-                       torch.stack([ext[b, pick[b]] for b in range(B)]),
-                       K[:, :1].expand(B, V, 3, 3).contiguous(), V)}
-
-
-def train_config():
-    """configs/main.yaml with configs/experiment/re10k_8view.yaml, as the JAX
-    package's main.py builds it (no LPIPS: its VGG weights are not in the
-    repository; no distillation: distiller is '')."""
-    from vicasplat_tpu_torch.loss.losses import LossCameraConfig, LossMseConfig
-    from vicasplat_tpu_torch.models import (
-        GaussianAdapterConfig,
-        VicaNetConfig,
-        VicaSplatConfig,
+    from vicasplat_tpu_torch.kernels.flash_attn import (
+        _forward,
+        attention_backward_reference,
+        attention_lse_reference,
+        attention_reference,
+        flash_attention_backward,
     )
-    from vicasplat_tpu_torch.training import OptimizerConfig, TrainConfig
 
-    return TrainConfig(
-        model=VicaSplatConfig(backbone=VicaNetConfig(use_intrinsic_embedding=True),
-                              gaussian_adapter=GaussianAdapterConfig(sh_degree=4)),
-        optimizer=OptimizerConfig(
-            lr=4e-5, warm_up_steps=1, backbone_lr_multiplier=0.25,
-            cosine_annealing=True, max_steps=20_000, gradient_clip_val=0.5,
-            new_param_keywords=("gaussian_param_head", "intrinsic_encoder")),
-        mse=LossMseConfig(weight=1.0),
-        camera=LossCameraConfig(weight=0.1, use_dq_loss=True, camera_type="dq"),
-        dtype="bfloat16", remat=True, remat_policy="dots")
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(8)
+    for label, (b, sq, sk, h, d) in shapes.items():
+        t0 = time.perf_counter()
+        q, do = (torch.randn(b, sq, h, d, generator=g, device=dev) for _ in range(2))
+        k, v = (torch.randn(b, sk, h, d, generator=g, device=dev) for _ in range(2))
+        o, lse = _forward(q, k, v, with_lse=True)
+        got = flash_attention_backward(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention_reference(q, k, v), attention_lse_reference(q, k)
+
+        def plain_bwd():
+            return attention_backward_reference(q, k, v, o_ref, lse_ref, do)
+
+        errs = {"out": rel_err(o, o_ref), "lse": rel_err(lse, lse_ref)}
+        errs.update({n: rel_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), got,
+                                                          plain_bwd())})
+        bad = [n for n, e in errs.items() if not e < F32_TOL]
+        if bad:
+            raise AssertionError(f"K1 float32 {label}: {bad} exceed {F32_TOL}: {errs}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        xs = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        out_lib = F.scaled_dot_product_attention(*xs)
+        do_t = do.transpose(1, 2)
+        fwd_ms = cuda_ms(lambda: _forward(q, k, v, with_lse=False))
+        bwd_ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, lse, do))
+        shape = f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {sk}, {h}, {d}) float32"
+        fwd_flops, bwd_flops = 4.0 * b * h * sq * sk * d, 10.0 * b * h * sq * sk * d
+        fwd = dict(shape=shape, max_abs_err=(o - o_ref).abs().max().item(),
+                   errors=errs, ms=fwd_ms,
+                   plain_ms=cuda_ms(lambda: attention_reference(q, k, v), iters=5),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                   device_ms=profile_window(lambda: _forward(q, k, v, False))[1],
+                   tflops=fwd_flops / fwd_ms * 1e-9)
+        fwd["bound_ms"], fwd["bound_by"] = bound(
+            fwd_flops, H100_F32_FLOPS, 4.0 * d * h * b * (2 * sq + 2 * sk))
+        bwd = dict(shape=shape, max_abs_err=max((a - r).abs().max().item() for a, r
+                                                in zip(got, plain_bwd())),
+                   errors=errs, ms=bwd_ms, plain_ms=cuda_ms(plain_bwd, iters=5),
+                   library_ms=cuda_ms(lambda: torch.autograd.grad(
+                       out_lib, xs, do_t, retain_graph=True)),
+                   device_ms=profile_window(
+                       lambda: flash_attention_backward(q, k, v, o, lse, do))[1],
+                   tflops=bwd_flops / bwd_ms * 1e-9)
+        bwd["bound_ms"], bwd["bound_by"] = bound(
+            bwd_flops, H100_F32_FLOPS, 4.0 * d * h * b * (4 * sq + 4 * sk) + 4.0 * b * h * sq)
+        rows[label] = {"forward": fwd, "backward": bwd}
+        phase("k1-f32", t0, f"{label} {shape}: relative errors " + ", ".join(
+            f"{n} {e:.1e}" for n, e in errs.items()) + f" (tol {F32_TOL}); forward "
+            f"kernel_ms {fwd['ms']:.4f} (device {fwd['device_ms']:.4f}) plain_ms "
+            f"{fwd['plain_ms']:.4f} library_ms {fwd['library_ms']:.4f} bound_ms "
+            f"{fwd['bound_ms']:.4f}; backward kernel_ms {bwd['ms']:.4f} (device "
+            f"{bwd['device_ms']:.4f}) plain_ms {bwd['plain_ms']:.4f} library_ms "
+            f"{bwd['library_ms']:.4f} bound_ms {bwd['bound_ms']:.4f}")
+        del out_lib, xs
+    return rows
+
+
+def rel_err(a, ref):
+    return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+def tiny_phase(dev, reset_counts, counts):
+    """F3 end to end: the _tiny_smoke widths in float32 on the card through
+    K1's float32 route, a forward (held against the same weights on the
+    CPU, where attention takes its plain version) and one training step
+    from the same weights, with exact launch counts. Returns the phase's
+    record and the decoder attention's inputs of the forward."""
+    import copy
+
+    from vicasplat_tpu_torch.models import vicanet, vicasplat_forward
+    from vicasplat_tpu_torch.training import AdamW, make_train_step
+    from vicasplat_tpu_torch.training.presets import (
+        tiny_smoke_config,
+        tiny_smoke_model,
+        tiny_smoke_views,
+    )
+
+    t0 = time.perf_counter()
+    cfg = tiny_smoke_config()
+    depth = cfg.model.backbone.dec_depth
+    g = torch.Generator().manual_seed(0)
+    model_cpu = tiny_smoke_model(cfg, g)
+    model = copy.deepcopy(model_cpu).to(dev)
+    ctx_cpu, tgt_cpu = tiny_smoke_views(g, 3), tiny_smoke_views(g, 2)
+    batch = {"context": {k: x.to(dev) for k, x in ctx_cpu.items()},
+             "target": {k: x.to(dev) for k, x in tgt_cpu.items()}}
+    zero = {name: 0 for name in counts()}
+    seen = []
+
+    def spy(q, k, v):
+        seen.append((q, k, v))
+        return attend(q, k, v)
+
+    attend = vicanet.flash_attention
+    with torch.no_grad():
+        reset_counts()
+        with mock.patch.object(vicanet, "flash_attention", spy):
+            out = vicasplat_forward(model, batch["context"], dtype=torch.float32)
+        torch.cuda.synchronize()
+        fwd_launches = counts()
+        ref = vicasplat_forward(model_cpu, ctx_cpu, dtype=torch.float32)
+    if fwd_launches != dict(zero, flash_attn_f32=depth):
+        raise AssertionError(f"tiny forward launches {fwd_launches}")
+    errs = {name: rel_err(a.cpu(), r) for name, a, r in (
+        ("means", out["gaussians"].means, ref["gaussians"].means),
+        ("opacities", out["gaussians"].opacities, ref["gaussians"].opacities),
+        ("poses", out["gaussian_camera_extrins"], ref["gaussian_camera_extrins"]))}
+    if not all(e < TINY_TOL for e in errs.values()):
+        raise AssertionError(f"tiny forward on the card vs CPU: {errs} (tol {TINY_TOL})")
+
+    step = make_train_step(cfg, model, AdamW(model, cfg.optimizer))
+    before = [p.detach().clone() for p in model.parameters()]
+    reset_counts()
+    logs = step(batch, 2)  # past the 2 warm-up steps: lr is not 0
+    torch.cuda.synchronize()
+    step_launches = counts()
+    if step_launches != dict(zero, flash_attn_f32=depth, flash_attn_f32_bwd=depth):
+        raise AssertionError(f"tiny train step launches {step_launches}")
+    logs = {k: float(v) for k, v in logs.items()}
+    changed = sum(int((p != b).sum()) for p, b in zip(model.parameters(), before))
+    if int(step.nonfinite) or not all(math.isfinite(v) for v in logs.values()) \
+            or not changed:
+        raise AssertionError(f"tiny train step: logs {logs}, {int(step.nonfinite)} "
+                             f"non-finite gradient entries, {changed} entries changed")
+    q, k, v = seen[0]
+    r = dict(forward_launches=fwd_launches, step_launches=step_launches,
+             forward_vs_cpu=errs, logs=logs, changed=changed,
+             attention_shape=[tuple(q.shape), tuple(k.shape)])
+    phase("tiny-f32", t0, f"_tiny_smoke widths in float32: forward vs CPU (relative) "
+          + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()) + f" (tol {TINY_TOL}); "
+          f"launches forward {fwd_launches}, train step {step_launches}; loss "
+          f"{logs['loss']:.5f}, {changed} parameter entries changed; decoder "
+          f"attention q {tuple(q.shape)} k/v {tuple(k.shape)}")
+    return r, (q.detach(), k.detach(), v.detach())
 
 
 def grad_group(name):
@@ -461,24 +596,46 @@ def grad_group(name):
 def train_run(dev, cfg, B, V, want, reset_counts, counts):
     """The training phase at batch B x 8 frames and V targets; raises
     torch.cuda.OutOfMemoryError when it does not fit."""
+    from vicasplat_tpu_torch.kernels import flash_attn
+    from vicasplat_tpu_torch.kernels.flash_attn import (
+        attention_backward_reference,
+        attention_lse_reference,
+        attention_reference,
+        flash_attention_backward,
+    )
     from vicasplat_tpu_torch.models import init_vicasplat, vicanet
-    from vicasplat_tpu_torch.kernels.flash_attn import attention_reference
     from vicasplat_tpu_torch.models.layers import sdpa
     from vicasplat_tpu_torch.training import AdamW, compute_loss, make_train_step
+    from vicasplat_tpu_torch.training.presets import flagship_train_batch
 
     gen = torch.Generator(device=dev).manual_seed(0)
     model = init_vicasplat(cfg.model, gen, dev)  # float32 parameters
     params = list(model.parameters())
     step = make_train_step(cfg, model, AdamW(model, cfg.optimizer))
-    batch = train_batch(dev, B, V)
+    batch = flagship_train_batch(dev, B, V)
     torch.cuda.reset_peak_memory_stats()
-    times, steps = [], []
+
+    times, steps, seen = [], [], []
+
+    def spy(ctx, do):
+        """_FlashAttention.backward, keeping the inputs of the first and the
+        last call (remat lets saved_tensors be read only once)."""
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        seen[min(len(seen), 1):] = [(q, k, v, o, lse, do)]
+        return flash_attention_backward(q, k, v, o, lse, do)
+
     for i in range(5):  # 2 warm-ups, then 3 timed
         before = [p.detach().clone() for p in params] if i < 2 else None
         reset_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        logs = step(batch, i)
+        if i == 0:
+            with mock.patch.object(flash_attn._FlashAttention, "backward",
+                                   staticmethod(spy)):
+                logs = step(batch, i)
+        else:
+            logs = step(batch, i)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
         launches = counts()
@@ -500,47 +657,89 @@ def train_run(dev, cfg, B, V, want, reset_counts, counts):
         steps.append(dict(ms=ms, logs=logs, launches=launches, changed=changed
                           if i < 2 else None))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    wall, dev_ms, top, kernels = profile_window(lambda: step(batch, 5))
-    k1_ms = sum(ms for name, ms in kernels.items() if "flash_" in name)
 
     def grad_pass(attend):
+        """The whole loss and its gradient's norm by parameter group, and
+        the gradient's non-finite entries, with `attend` as the decoder
+        attention."""
         with mock.patch.object(vicanet, "flash_attention", attend):
-            loss, _ = compute_loss(model, cfg, batch, 6)
+            loss, _ = compute_loss(model, cfg, batch, 5)
             # the deepest refinenets' rcu1 takes no input: no gradient
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-        norms = {}
+        norms, bad = {}, 0
         for (name, _), g in zip(model.named_parameters(), grads):
             key = grad_group(name)
             norms[key] = norms.get(key, 0.0) + (
                 0.0 if g is None else float((g.float() ** 2).sum()))
-        return dict(loss=float(loss.detach()), **{k: math.sqrt(v) for k, v in norms.items()})
+            bad += 0 if g is None else int((~torch.isfinite(g)).sum())
+        return dict(loss=float(loss.detach()),
+                    **{k: math.sqrt(v) for k, v in norms.items()}), bad
 
+    # K1 against plain attention in one gradient pass of the whole loss at
+    # the same weights and batch, SDPA's gap to plain attention the noise
+    # floor: the weights after the 5 steps above. The weights after the
+    # 6th step are no place for it: there the gradient is non-finite
+    # with plain attention and SDPA as much as with K1, and after 1 step
+    # (from random init, Adam's first update is the sign of each entry)
+    # the three norms part by 35 % (PERF.md §6; measured by
+    # vicasplat_tpu_torch/diagnostics/k1_trajectory.py).
     reset_counts()
-    ref = grad_pass(lambda q, k, v: attention_reference(q, k, v).to(q.dtype))
-    alt = grad_pass(sdpa)
+    ref, bad_ref = grad_pass(lambda q, k, v: attention_reference(q, k, v).to(q.dtype))
+    alt, bad_alt = grad_pass(sdpa)
     if any(counts().values()):
         raise AssertionError(f"a swapped gradient pass launched {counts()}")
-    got = grad_pass(vicanet.flash_attention)
-    gap = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ref}
-    gap_sdpa = {k: abs(alt[k] - ref[k]) / abs(ref[k]) for k in ref}
+    got, bad_got = grad_pass(vicanet.flash_attention)
+    if bad_ref or bad_alt or bad_got:
+        raise AssertionError(f"non-finite gradient entries at the weights after 5 "
+                             f"steps: plain {bad_ref}, sdpa {bad_alt}, K1 {bad_got}")
+    def rel_gap(a, r):
+        # a group whose plain gradient is exactly 0 must be 0 in the other too
+        return abs(a - r) / abs(r) if r else (0.0 if a == r else math.inf)
+
+    gap = {k: rel_gap(got[k], ref[k]) for k in ref}
+    gap_sdpa = {k: rel_gap(alt[k], ref[k]) for k in ref}
     floor = {k: 1e-4 if k == "loss" else 1e-2 for k in ref}
     tol = {k: 2 * gap_sdpa[k] + floor[k] for k in ref}
-    return dict(batch=B, targets=V, steps=steps, step_ms=times,
+    plain_k1 = dict(gap=gap, gap_sdpa=gap_sdpa, tol=tol, kernel=got, plain=ref,
+                    sdpa=alt)
+
+    wall, dev_ms, top, kernels = profile_window(lambda: step(batch, 5))
+    k1_ms = sum(ms for name, ms in kernels.items() if "flash_" in name)
+
+    # K1's backward on step 0's inputs of the last and the first decoder
+    # block, against the float32 plain backward and SDPA's, as in k1-bwd
+    import torch.nn.functional as F
+
+    bwd_errs = {}
+    # the backward runs the blocks in reverse: its first call is block 12
+    for label, (q, k, v, o, lse, do) in (("block 12", seen[0]), ("block 1", seen[-1])):
+        xs = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        lib = torch.autograd.grad(F.scaled_dot_product_attention(*xs), xs,
+                                  do.transpose(1, 2))
+        ref_bwd = attention_backward_reference(
+            q, k, v, attention_reference(q, k, v), attention_lse_reference(q, k), do)
+        bwd_errs[label] = flash_bwd_errors(
+            f"K1 backward on the train step's inputs ({label})",
+            flash_attention_backward(q, k, v, o, lse, do), ref_bwd, lib)
+        del xs, lib, ref_bwd
+    del seen
+    return dict(k1_bwd_on_step_inputs=bwd_errs, batch=B, targets=V, steps=steps, step_ms=times,
                 train_step_ms=statistics.median(times), peak_gb=peak_gb,
                 profile_wall_ms=wall, device_ms=dev_ms, top=top, k1_device_ms=k1_ms,
                 k1_share=k1_ms / dev_ms if dev_ms else None,
-                plain_k1=dict(gap=gap, gap_sdpa=gap_sdpa, tol=tol, kernel=got,
-                              plain=ref, sdpa=alt))
+                plain_k1=plain_k1)
 
 
 def train_phase(dev, dec_depth, reset_counts, counts):
     """The flagship training step, cut only as far as memory forces."""
     import gc
 
+    from vicasplat_tpu_torch.training.presets import flagship_train_config
+
     t0 = time.perf_counter()
-    cfg = train_config()
-    want = {"flash_attn": 2 * dec_depth, "flash_attn_bwd": dec_depth,
-            "dpt_tail": 0, "composite": 0, "bitonic_topk": 0}
+    cfg = flagship_train_config()
+    want = dict({name: 0 for name in counts()}, flash_attn=2 * dec_depth,
+                flash_attn_bwd=dec_depth)
     cuts = []
     for B, V in TRAIN_SHAPES:
         try:
@@ -567,10 +766,17 @@ def train_phase(dev, dec_depth, reset_counts, counts):
           f"{r['profile_wall_ms']:.1f} ms, device kernels {r['device_ms']:.1f} ms, "
           f"K1 kernels {r['k1_device_ms']:.2f} ms (share {r['k1_share']:.4f}); top "
           "operators by device ms: " + "; ".join(f"{n} {ms:.2f}" for n, ms in r["top"]))
+    for label, errs in r["k1_bwd_on_step_inputs"].items():
+        phase("train", t0, f"K1 backward on step 0's own inputs (decoder {label}), "
+              "relative errors: " + ", ".join(
+                  f"{n} {e['rel']:.2e} (sdpa {e['sdpa_rel']:.2e}, tol "
+                  f"{2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})" for n, e in errs.items()))
     pk = r["plain_k1"]
-    phase("train", t0, "K1 vs plain attention, one gradient pass at the same "
-          "weights and batch (relative gaps): " + ", ".join(
-              f"{k} {pk['gap'][k]:.2e} (sdpa {pk['gap_sdpa'][k]:.2e}, tol "
+    phase("train", t0, "K1 vs plain attention, one gradient pass of the whole loss "
+          "at the same weights (after 5 steps) and batch: loss and gradient norms "
+          "kernel / sdpa / plain, relative gaps: " + ", ".join(
+              f"{k} {pk['kernel'][k]:.4e} / {pk['sdpa'][k]:.4e} / {pk['plain'][k]:.4e} "
+              f"(gap {pk['gap'][k]:.2e}, sdpa {pk['gap_sdpa'][k]:.2e}, tol "
               f"{pk['tol'][k]:.2e})" for k in pk["gap"]))
     bad = [k for k in pk["gap"] if not pk["gap"][k] <= pk["tol"][k]]
     if bad:
@@ -750,17 +956,23 @@ def main():
     render_mod = importlib.import_module("vicasplat_tpu_torch.ops.rasterize.render")
 
     torch.backends.cudnn.allow_tf32 = False  # float32 convs in full float32
-    counters = {"flash_attn": flash_attention,
-                "flash_attn_bwd": flash_attention_backward,
-                "dpt_tail": fused_dpt_tail, "composite": composite_launch,
-                "bitonic_topk": bitonic_topk}
+    # each kernel's launch count: (wrapper, attribute)
+    counters = {"flash_attn": (flash_attention, "launches"),
+                "flash_attn_bwd": (flash_attention_backward, "launches"),
+                "flash_attn_f32": (flash_attention, "f32_launches"),
+                "flash_attn_f32_bwd": (flash_attention_backward, "f32_launches"),
+                "dpt_tail": (fused_dpt_tail, "launches"),
+                "composite": (composite_launch, "launches"),
+                "bitonic_topk": (bitonic_topk, "launches")}
 
     def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def counts():
-        return {name: fn.launches for name, fn in counters.items()}
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+    zero = {name: 0 for name in counters}
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -773,8 +985,11 @@ def main():
     for name in KERNELS:
         build.load(name)
         ptxas = [ln.strip() for ln in build.build_logs.get(name, "").splitlines()
-                 if "registers" in ln or "spill" in ln]
-        phase("build", t0, f"{name} by nvcc; " + " | ".join(ptxas))
+                 if "registers" in ln or "spill" in ln or "setmaxnreg" in ln]
+        secs = build.build_seconds.get(name)
+        phase("build", t0, f"{name} by nvcc in "
+              + ("(built before)" if secs is None else f"{secs:.1f} s") + "; "
+              + " | ".join(ptxas))
 
     k1 = flash_phase(dev)
 
@@ -818,8 +1033,7 @@ def main():
     rendered = render(out)
     torch.cuda.synchronize()
     launches = counts()
-    want = {"flash_attn": dec_depth, "flash_attn_bwd": 0, "dpt_tail": 0,
-            "composite": 0, "bitonic_topk": 0}
+    want = dict(zero, flash_attn=dec_depth)
     if launches != want:
         raise AssertionError(f"default path launches {launches}, not {want}")
     n_gauss = check_outputs(out, rendered)
@@ -839,8 +1053,8 @@ def main():
     rendered_acc = render(out_acc, "accel")
     torch.cuda.synchronize()
     launches_acc = counts()
-    want = {"flash_attn": dec_depth, "flash_attn_bwd": 0, "dpt_tail": 1,
-            "composite": N_VIEWS, "bitonic_topk": N_VIEWS}
+    want = dict(zero, flash_attn=dec_depth, dpt_tail=1, composite=N_VIEWS,
+                bitonic_topk=N_VIEWS)
     if launches_acc != want:
         raise AssertionError(f"accelerator path launches {launches_acc}, not {want}")
     check_outputs(out_acc, rendered_acc)
@@ -870,8 +1084,17 @@ def main():
         k3 = tail_phase(seen.pop("k3"))
     seen.clear()
 
-    # ---- K1's backward, then the flagship training step ----
+    # ---- K1's backward, its float32 route, the tiny float32 configuration
+    # through that route, then the flagship training step ----
     k1_bwd = flash_bwd_phase(dev)
+    tiny, (tq, tk, tv) = tiny_phase(dev, reset_counts, counts)
+    b, sq, h, d = tq.shape
+    k1_f32 = flash_f32_phase(dev, {
+        "tiny decoder": (b, sq, tk.shape[1], h, d),  # the tiny phase's shape
+        "d12 ragged": (2, 200, 137, 12, 12),
+        "d16 ragged": (2, 77, 130, 4, 16),
+        "d64 decoder": (1, 2056, 2064, 12, 64)})
+    del tq, tk, tv
     train = train_phase(dev, dec_depth, reset_counts, counts)
 
     # ---- both configurations in turns ----
@@ -1006,11 +1229,11 @@ def main():
     if bad:
         raise AssertionError(f"kernel and plain forward disagree: {bad}")
 
-    def entry(name, replaces, r, launches=None):
+    def entry(name, replaces, r, launches=None, source=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape")
         return dict({"name": name, "route": "cuda",
-                     "source": f"vicasplat_tpu_torch/csrc/{name}.cu",
+                     "source": f"vicasplat_tpu_torch/csrc/{source or name}.cu",
                      "replaces": replaces,
                      "launches": launches_acc[name] if launches is None else launches},
                     **{k: r[k] for k in keys}, **{k: r[k] for k in r if k not in keys})
@@ -1022,11 +1245,22 @@ def main():
         entry("flash_attn_bwd", "vicasplat_tpu/models/vicanet.py:242 (backward: "
               "_flash_attention_bwd_dkv, _flash_attention_bwd_dq)",
               k1_bwd["decoder"], train["steps"][-1]["launches"]["flash_attn_bwd"]),
+        # the float32 route, at the tiny configuration's decoder shape;
+        # launches in its forward and per training step
+        entry("flash_attn_f32", "vicasplat_tpu/models/vicanet.py:242 (float32)",
+              k1_f32["tiny decoder"]["forward"],
+              tiny["forward_launches"]["flash_attn_f32"]),
+        entry("flash_attn_f32_bwd", "vicasplat_tpu/models/vicanet.py:242 (float32 "
+              "backward: _flash_attention_bwd_dkv, _flash_attention_bwd_dq)",
+              k1_f32["tiny decoder"]["backward"],
+              tiny["step_launches"]["flash_attn_f32_bwd"], source="flash_attn_f32"),
         entry("composite", "vicasplat_tpu/ops/rasterize/pallas_composite.py:59",
               k2["flagship"]),
         entry("dpt_tail", "vicasplat_tpu/ops/dpt_tail.py:43", k3["with m"]),
         entry("bitonic_topk", "vicasplat_tpu/ops/rasterize/pallas_bitonic.py:31", k4),
     ], "extra": {"composite_dense": k2["dense"], "dpt_tail_without_m": k3["without m"],
+                 "flash_attn_encoder": k1["encoder"], "flash_attn_ragged": k1["ragged"],
+                 "flash_attn_f32_shapes": k1_f32, "tiny_f32": tiny,
                  "flash_attn_bwd_encoder": k1_bwd["encoder"],
                  "flash_attn_bwd_ragged": k1_bwd["ragged"],
                  "flash_attn_train_launches_per_step":
@@ -1034,7 +1268,7 @@ def main():
         "train": {k: train[k] for k in ("batch", "targets", "cuts", "train_step_ms",
                                         "step_ms", "peak_gb", "device_ms",
                                         "k1_device_ms", "k1_share", "top",
-                                        "plain_k1")},
+                                        "k1_bwd_on_step_inputs", "plain_k1")},
         "flagship": {
             which: {"forward_ms": med[which]["forward"],
                     "render_ms": med[which]["render"],

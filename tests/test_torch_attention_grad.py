@@ -2,7 +2,9 @@
 there through the plain version, held against jax.grad of the JAX package's
 attention; and the plain backward written from the kernels' formulas
 (`attention_backward_reference`, from the row log-sum-exp) against autograd
-of the plain forward. The kernels themselves run only on a card
+of the plain forward. The plain versions are the yardstick of both kernel
+routes, bf16 at head dim 64 and float32 at the tiny configuration's head
+dims 12 and 16; the kernels themselves run only on a card
 (tests/test_torch_gpu.py holds them against these)."""
 import jax
 import jax.numpy as jnp
@@ -25,7 +27,13 @@ TOL = 1e-5
 
 SHAPES = [((2, 77, 3, 64), 130),   # Sq < Sk, ragged against 64-row tiles
           ((1, 200, 2, 64), 137),  # Sq > Sk
-          ((2, 64, 4, 16), 64)]    # square, another head dim
+          ((2, 64, 4, 16), 64),    # square, another head dim
+          # the float32 configuration configs/experiment/_tiny_smoke.yaml:
+          # its decoder's joint attention (2 x 3 frames of 4 image tokens
+          # against 3 x 5 with the camera tokens, heads of 48 / 4 = 12) and
+          # heads of its encoder's width (64 / 4 = 16), Sq != Sk
+          ((2, 12, 4, 12), 15),
+          ((2, 37, 4, 16), 20)]
 
 
 def _inputs(shape_q, sk, seed=0):

@@ -3,6 +3,8 @@
 They skip where there is no card. On the card they run without the JAX
 conftest: `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py`.
 """
+import copy
+import math
 from unittest import mock
 
 import pytest
@@ -25,6 +27,7 @@ from vicasplat_tpu_torch.ops.rasterize.pallas_composite import (
 )
 from vicasplat_tpu_torch.kernels.flash_attn import (
     _forward,
+    attention_backward_reference,
     attention_lse_reference,
     flash_attention_backward,
 )
@@ -56,6 +59,18 @@ FLASH_BWD_FLOOR = 2e-3
 # K1's row log-sum-exp against float32 logsumexp of the same bf16 inputs:
 # both sum float32 products, in other orders
 LSE_TOL = 1e-3
+# K1's float32 route against the float32 plain versions, relative to each
+# tensor's largest entry: both compute in float32 (2^-24 a rounding) and
+# sum in other orders over up to 333 keys and 128 dims, and the kernel's
+# exp2 is within 2 ulp; 1e-4 leaves two orders of magnitude over the
+# roundings and fails a wrong mask, scale or layout, which move entries
+# by their own size
+F32_TOL = 1e-4
+# the _tiny_smoke widths in float32 on the card against the CPU, relative
+# to each output's largest entry: float32 on both sides summed in other
+# orders through 6 blocks, the DPT heads and the exp map of the means (the
+# port holds the JAX package to 2e-4 at these widths on the CPU)
+TINY_TOL = 1e-3
 
 
 @pytest.fixture
@@ -93,11 +108,19 @@ def test_flash_matches_plain(cuda, shape_q, sk):
 
 
 def test_flash_rejects_what_it_cannot_run(cuda):
+    """bf16 at a head dim other than 64 (no configuration of the repo uses
+    one), a non-contiguous tensor and a dtype neither route takes raise;
+    nothing falls back."""
     q, k, v = _qkv((1, 64, 2, 64), 64, cuda)
-    with pytest.raises(TypeError):
-        flash_attention(q.float(), k.float(), v.float())
+    q32, k32, v32 = _qkv((1, 64, 2, 32), 64, cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q32, k32, v32)
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    with pytest.raises(ValueError):
+        flash_attention(*(x.float().transpose(1, 2) for x in (q, k, v)))
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
     # a tensor that needs a gradient runs the backward kernels
     before = flash_attention_backward.launches
     flash_attention(q.requires_grad_(), k, v).float().sum().backward()
@@ -141,6 +164,93 @@ def test_flash_backward_matches_plain(cuda, shape_q, sk):
     lse = _forward(q, k, v, with_lse=True)[1]
     err = (lse - attention_lse_reference(q, k)).abs().max().item()
     assert err < LSE_TOL, err
+
+
+def _rel(a, ref):
+    return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize(
+    "shape_q,sk",
+    [((2, 12, 4, 12), 15),       # the _tiny_smoke decoder's joint attention
+     ((2, 77, 4, 16), 130),      # heads of its encoder's width, ragged
+     ((2, 200, 3, 12), 137),     # Sq > Sk, both ragged against 32-row tiles
+     ((1, 300, 2, 64), 333),     # the flagship's head dim in float32
+     ((1, 40, 2, 128), 70)],     # the widest head the route takes
+)
+def test_flash_f32_matches_plain(cuda, shape_q, sk):
+    """The float32 route (F3): forward, lse and backward against the float32
+    plain versions, within F32_TOL of each tensor's largest entry."""
+    q, k, v = (x.float() for x in _qkv(shape_q, sk, cuda))
+    g = torch.Generator(device=cuda).manual_seed(9)
+    do = torch.randn(q.shape, generator=g, device=cuda)
+    before = (flash_attention.f32_launches, flash_attention_backward.f32_launches)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*xs)
+    got = torch.autograd.grad(out, xs, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.f32_launches, flash_attention_backward.f32_launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    ref = attention_reference(q, k, v)
+    assert _rel(out, ref) < F32_TOL
+    o, lse = _forward(q, k, v, with_lse=True)
+    assert (lse - attention_lse_reference(q, k)).abs().max().item() < F32_TOL
+    ref_grads = attention_backward_reference(q, k, v, ref,
+                                             attention_lse_reference(q, k), do)
+    for name, a, r in zip("qkv", got, ref_grads):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        assert _rel(a, r) < F32_TOL, name
+
+
+def test_tiny_smoke_float32_on_card(cuda):
+    """F3 end to end: the widths of configs/experiment/_tiny_smoke.yaml in
+    float32 (decoder heads of 12, through K1's float32 route) run a forward
+    and one training step on the card; the forward agrees with the same
+    weights on the CPU, where attention takes the plain version."""
+    from vicasplat_tpu_torch.models import vicasplat_forward
+    from vicasplat_tpu_torch.training import AdamW, make_train_step
+    from vicasplat_tpu_torch.training.presets import (tiny_smoke_config,
+                                                      tiny_smoke_model,
+                                                      tiny_smoke_views)
+
+    cfg = tiny_smoke_config()
+    g = torch.Generator().manual_seed(0)
+    model_cpu = tiny_smoke_model(cfg, g)
+    model = copy.deepcopy(model_cpu).to(cuda)
+    context, target = tiny_smoke_views(g, 3), tiny_smoke_views(g, 2)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # float32 convs in full float32
+    try:
+        with torch.no_grad():
+            before = flash_attention.f32_launches
+            out = vicasplat_forward(model, {k: x.to(cuda) for k, x in context.items()},
+                                    dtype=torch.float32)
+            torch.cuda.synchronize()
+            assert flash_attention.f32_launches == before + 4  # one a decoder block
+            ref = vicasplat_forward(model_cpu, context, dtype=torch.float32)
+        for name, a, r in (("means", out["gaussians"].means, ref["gaussians"].means),
+                           ("opacities", out["gaussians"].opacities,
+                            ref["gaussians"].opacities),
+                           ("poses", out["gaussian_camera_extrins"],
+                            ref["gaussian_camera_extrins"])):
+            assert torch.isfinite(a).all(), name
+            assert _rel(a.cpu(), r) < TINY_TOL, (name, _rel(a.cpu(), r))
+
+        step = make_train_step(cfg, model, AdamW(model, cfg.optimizer))
+        batch = {"context": {k: x.to(cuda) for k, x in context.items()},
+                 "target": {k: x.to(cuda) for k, x in target.items()}}
+        before = (flash_attention.f32_launches, flash_attention_backward.f32_launches,
+                  flash_attention.launches, flash_attention_backward.launches)
+        logs = step(batch, 1)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    after = (flash_attention.f32_launches, flash_attention_backward.f32_launches,
+             flash_attention.launches, flash_attention_backward.launches)
+    assert [a - b for a, b in zip(after, before)] == [4, 4, 0, 0]
+    assert all(math.isfinite(float(v)) for v in logs.values()), logs
+    assert int(step.nonfinite) == 0
 
 
 def test_topk_matches_plain(cuda):

@@ -1,0 +1,215 @@
+// Hopper building blocks shared by K1's bf16 kernels (flash_attn.cu,
+// flash_attn_bwd.cu), written as inline PTX for sm_90a: mbarriers, TMA loads
+// of (B, S, H, 64) bf16 tiles into 128-byte-swizzled shared memory, wgmma
+// descriptors and the wgmma shapes the kernels issue, and the host-side
+// encoding of the tensor maps.
+//
+// Shared-memory tiles are rows of 64 bf16 (128 bytes), stored as TMA's
+// 128-byte swizzle leaves them: the 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8), and each tile starts on a 1024-byte boundary, so that TMA,
+// the descriptors and the hardware's swizzle agree on the address bits.
+// Such a tile serves wgmma both as a K-major operand (its rows are M or N,
+// its 64 columns the reduction) and, through the descriptor's transpose
+// bit, as an MN-major B operand (its rows are the reduction, its 64
+// columns N): no transposed copy is ever written.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after `raw` in shared memory.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
+// ---- mbarriers ----
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive once and add `bytes` to the transactions the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- TMA ----
+// One tile of a (B, S, H, 64) tensor described as the 4-D map (64, H, S, B):
+// rows s0.. of head h, batch b. Rows past S arrive as zeros, and the full
+// box's bytes count toward the barrier's transactions.
+__device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int h, int s0,
+                                              int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(h),
+      "r"(s0), "r"(b)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte aligned).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- registers ----
+// Keep the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- wgmma ----
+// Descriptor of a 128-byte-swizzled tile: start address, leading byte
+// offset 16 (unused by these layouts), stride byte offset 1024 (from one
+// group of 8 rows to the next), layout type 1 (128-byte swizzle). Adding
+// n >> 4 moves the start by n bytes: 32 bytes is the next 16 columns of a
+// K-major operand, 2048 bytes the next 16 rows of an MN-major one.
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFFu) >> 4) |
+         (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x 128, float32 accumulators) (+)= A B: A (64 x 16) and B (128 x 16)
+// both K-major in 128-byte-swizzled shared memory, read through descriptors.
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, float32 accumulators) (+)= A B: A (64 x 16) and B (64 x 16)
+// both K-major in 128-byte-swizzled shared memory, read through descriptors.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, float32 accumulators) += A B: A (64 x 16 bf16) from registers
+// in the mma.sync A-fragment layout (warp w holds rows 16w..16w+15), B
+// (16 x 64) MN-major in 128-byte-swizzled shared memory (the descriptor's
+// transpose bit: the tile is stored [k][n], n contiguous).
+__device__ __forceinline__ void wgmma_rs_m64n64k16_mn(float (&d)[32],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+}  // namespace hopper
+
+// Host: describe a contiguous (B, S, H, 64) bf16 tensor to TMA as the 4-D
+// map (64, H, S, B) with a box of (64, 1, rows, 1) and the 128-byte swizzle
+// (a row of 64 bf16 is exactly 128 bytes). Returns the CUresult.
+static inline int encode_bshd_map(CUtensorMap* map, const void* base, int B,
+                                  int S, int H, int rows) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {128, (cuuint64_t)H * 128,
+                                 (cuuint64_t)S * H * 128};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return static_cast<int>(cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// Error code the entry points return beside cudaError_t values: a tensor
+// map that cuTensorMapEncodeTiled refused is kTensorMapError + its CUresult.
+constexpr int kTensorMapError = 100000;

@@ -3,7 +3,10 @@
 Each source in `csrc/` has a plain C interface, so it compiles in seconds
 without PyTorch's headers, ninja or `torch.utils.cpp_extension`. The shared
 library goes into `build/kernels/` at the repository root (git-ignored),
-named by a hash of the source and the flags, and is built at first use.
+named by a hash of the source, the headers in `csrc/` and the flags, and is
+built at first use. The libraries link libcuda (`-lcuda`, from the
+toolkit's stubs at build time): K1's bf16 kernels encode their TMA tensor
+maps on the host with `cuTensorMapEncodeTiled`, which libcuda exports.
 """
 from __future__ import annotations
 
@@ -12,18 +15,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _entries: dict[tuple, object] = {}
 build_logs: dict[str, str] = {}  # nvcc's stderr (ptxas register report)
+build_seconds: dict[str, float] = {}  # wall time of each source's nvcc
 
 
 def _nvcc() -> str:
@@ -40,16 +45,19 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[Path, Path]:
+    """The source and its library's path, named by a hash of the source,
+    every header in csrc/ (any of them may be included) and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
+    blob = src.read_bytes() + b"".join(
+        h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 
 def build_all(names) -> dict[str, Path]:
     """Compile `csrc/<name>.cu` for every name not built yet, one nvcc
-    process per source, all started together."""
+    process per source, all started together; each one's wall time goes
+    into `build_seconds` and its stderr into `build_logs`."""
     jobs, outs = {}, {}
     for name in names:
         src, out = _target(name)
@@ -58,19 +66,23 @@ def build_all(names) -> dict[str, Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        )
-        jobs[name] = (proc, src, tmp, out)
+        log = tmp.with_suffix(".log")
+        with open(log, "w") as err:
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                    stdout=subprocess.DEVNULL, stderr=err)
+        jobs[name] = (proc, src, tmp, out, log, time.perf_counter())
     failed = []
-    for name, (proc, src, tmp, out) in jobs.items():
-        _, err = proc.communicate()
-        build_logs[name] = err
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {src}:\n{err}")
-        else:
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    while jobs:
+        for name in [n for n, job in jobs.items() if job[0].poll() is not None]:
+            proc, src, tmp, out, log, t0 = jobs.pop(name)
+            build_seconds[name] = time.perf_counter() - t0
+            build_logs[name] = log.read_text()
+            log.unlink()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src}:\n{build_logs[name]}")
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs

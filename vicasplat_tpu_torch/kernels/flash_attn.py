@@ -1,14 +1,21 @@
-"""K1: flash attention, forward (csrc/flash_attn.cu) and backward
-(csrc/flash_attn_bwd.cu), with their plain versions.
+"""K1: flash attention, forward and backward, with their plain versions.
 
 Replaces the Pallas TPU flash-attention kernel behind
 `vicasplat_tpu/models/vicanet.py:242` (`_flash_unmasked`), which carries the
 mix decoder's joint image attention, and its library VJP
-(`_flash_attention_bwd_dkv`, `_flash_attention_bwd_dq`). A CUDA tensor that
-needs a gradient runs through `_FlashAttention`: the forward kernel also
-writes each row's log-sum-exp (natural log, float32 (B, H, Sq)), and the
-backward kernels form dQ, dK and dV from it. A CPU tensor takes
-`attention_reference`, which autograd differentiates.
+(`_flash_attention_bwd_dkv`, `_flash_attention_bwd_dq`). Two routes on a
+CUDA tensor, chosen by its dtype:
+- bf16 at head dim 64 (every bf16 configuration of the repo): the Hopper
+  kernels `csrc/flash_attn.cu` (TMA, mbarriers, wgmma) and
+  `csrc/flash_attn_bwd.cu` (a D pass, dK/dV and dQ, wgmma);
+- float32 at any head dim up to 128 (the float32 training configuration,
+  `configs/experiment/_tiny_smoke.yaml`, heads of 12 and 16):
+  `csrc/flash_attn_f32.cu`, in full float32.
+Any other dtype or head dim raises. A CUDA tensor that needs a gradient
+runs through `_FlashAttention`: the forward kernel also writes each row's
+log-sum-exp (natural log, float32 (B, H, Sq)), and the backward kernels
+form dQ, dK and dV from it. A CPU tensor takes `attention_reference`, which
+autograd differentiates.
 """
 from __future__ import annotations
 
@@ -19,11 +26,18 @@ import torch
 
 from . import build
 
-HEAD_DIM = 64
+HEAD_DIM = 64        # the bf16 kernels' head dim
+MAX_F32_HEAD_DIM = 128
+TILE = 64            # query rows of the bf16 backward's padded lse and D
 # q, k, v, o, lse, B, Sq, Sk, H, stream
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-# q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, stream
+# q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq, Sk, H, stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the float32 route's: the same, and D before the stream
+_F32_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_F32_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# the bf16 entry points return this plus a CUresult when a TMA map is refused
+_TENSOR_MAP_ERROR = 100000
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -74,55 +88,90 @@ def _check_shapes(q, k, v):
 
 
 def _check_cuda(**tensors):
+    """Raise unless the tensors are what one of the two routes takes: all
+    bf16 at head dim 64, or all float32 at head dim 1..128; contiguous and
+    16-byte aligned."""
+    dtype = next(iter(tensors.values())).dtype
     for name, x in tensors.items():
-        if x.shape[-1] != HEAD_DIM:
-            raise ValueError(f"{name}: head dim {x.shape[-1]} != {HEAD_DIM}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{name} is {x.dtype}; the kernel takes bfloat16")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} is {x.dtype}, the others {dtype}")
+        d = x.shape[-1]
+        if dtype == torch.bfloat16:
+            if d != HEAD_DIM:
+                raise ValueError(f"{name}: bf16 head dim {d} != {HEAD_DIM}")
+        elif dtype == torch.float32:
+            if not 1 <= d <= MAX_F32_HEAD_DIM:
+                raise ValueError(f"{name}: float32 head dim {d} is not in "
+                                 f"1..{MAX_F32_HEAD_DIM}")
+        else:
+            raise TypeError(f"{name} is {dtype}; the kernels take bfloat16 "
+                            "(head dim 64) or float32 (head dim <= 128)")
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
 
 
+def _raise_for(rc: int, what: str):
+    if rc >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed: CUresult "
+                           f"{rc - _TENSOR_MAP_ERROR}")
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
 def _forward(q, k, v, with_lse: bool):
-    """Launch the forward kernel: out, and lse when asked (else None)."""
-    B, Sq, H, _ = q.shape
+    """Launch the forward kernel of q's route: out, and lse when asked
+    (else None)."""
+    B, Sq, H, D = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
            if with_lse else None)
-    fn = build.entry("flash_attn", "vs_flash_attn_fwd", _FWD_ARGTYPES)
+    f32 = q.dtype == torch.float32
+    fn = (build.entry("flash_attn_f32", "vs_flash_attn_f32_fwd", _F32_FWD_ARGTYPES)
+          if f32 else build.entry("flash_attn", "vs_flash_attn_fwd", _FWD_ARGTYPES))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), B, Sq, k.shape[1], H,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attn launch failed: cudaError {rc}")
-    flash_attention.launches += 1
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, Sq, k.shape[1], H)
+        rc = fn(*args, D, stream) if f32 else fn(*args, stream)
+    _raise_for(rc, "flash_attn_f32" if f32 else "flash_attn")
+    if f32:
+        flash_attention.f32_launches += 1
+    else:
+        flash_attention.launches += 1
     return out, lse
 
 
 def flash_attention_backward(q, k, v, o, lse, do):
-    """(dQ, dK, dV) in bf16 through the backward kernels: one call launches
-    the D pass, the dK/dV kernel and the dQ kernel. CUDA tensors only."""
+    """(dQ, dK, dV) in q's dtype through the backward kernels of its route:
+    one call launches the D pass, the dK/dV kernel and the dQ kernel. CUDA
+    tensors only."""
     _check_cuda(q=q, k=k, v=v, o=o, do=do)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise TypeError("lse must be contiguous float32 (B, H, Sq)")
-    B, Sq, H, _ = q.shape
+    B, Sq, H, D = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, Sq):
         raise ValueError("o and dO must match q, and lse be (B, H, Sq)")
-    delta = torch.empty_like(lse)
+    f32 = q.dtype == torch.float32
+    # D; the bf16 kernels' lse * log2(e) and D, padded to whole tiles
+    n = B * H * (Sq if f32 else 2 * -(-Sq // TILE) * TILE)
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    fn = build.entry("flash_attn_bwd", "vs_flash_attn_bwd", _BWD_ARGTYPES)
+    fn = (build.entry("flash_attn_f32", "vs_flash_attn_f32_bwd", _F32_BWD_ARGTYPES)
+          if f32 else build.entry("flash_attn_bwd", "vs_flash_attn_bwd",
+                                  _BWD_ARGTYPES))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], H, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd launch failed: cudaError {rc}")
-    flash_attention_backward.launches += 1
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], H)
+        rc = fn(*args, D, stream) if f32 else fn(*args, stream)
+    _raise_for(rc, "flash_attn_f32 backward" if f32 else "flash_attn_bwd")
+    if f32:
+        flash_attention_backward.f32_launches += 1
+    else:
+        flash_attention_backward.launches += 1
     return dq, dk, dv
 
 
@@ -140,17 +189,18 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         return flash_attention_backward(q, k, v, o, lse,
-                                        do.to(torch.bfloat16).contiguous())
+                                        do.to(q.dtype).contiguous())
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Unmasked attention over (B, S, H, D) tensors, Sq != Sk allowed.
 
-    A CUDA tensor launches the forward kernel (bf16, contiguous, D = 64),
-    and, when a gradient is needed, runs the backward kernels in the
-    backward; a CPU tensor takes `attention_reference`, cast back to q's
-    dtype, differentiable by autograd.
+    A CUDA tensor launches the forward kernel of its route (bf16 at D = 64,
+    or float32 at D <= 128; contiguous) and, when a gradient is needed, the
+    backward kernels in the backward; anything else raises. A CPU tensor
+    takes `attention_reference`, cast back to q's dtype, differentiable by
+    autograd.
     """
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
@@ -163,5 +213,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     return _forward(q, k, v, with_lse=False)[0]
 
 
-flash_attention.launches = 0           # forward kernel launches
-flash_attention_backward.launches = 0  # backward calls (3 kernels each)
+flash_attention.launches = 0               # bf16 forward kernel launches
+flash_attention.f32_launches = 0           # float32 forward kernel launches
+flash_attention_backward.launches = 0      # bf16 backward calls (3 kernels each)
+flash_attention_backward.f32_launches = 0  # float32 backward calls (3 kernels each)
