@@ -20,7 +20,9 @@ Phases, each printing lines with their seconds:
             accelerator path gives it (and K2 also on a dense payload whose
             pixels saturate, K4 also on random words), with its time, the
             plain version's, one library call's where one exists, and the
-            bound of this run's inputs;
+            bound of this run's inputs; K3 also with one call's device time
+            by the profiler beside cuDNN's, its share of the bound, its
+            cluster size and ptxas's registers and spills;
   k1-bwd    K1's backward kernels (dQ, dK, dV) against the float32 plain
             backward at the decoder shape at batch 2, the encoder shape and
             a ragged one, within twice SDPA's bf16 backward error plus a
@@ -291,13 +293,38 @@ def composite_phase(dev, flagship_payload, image_shape, tile_px, chunk):
     return rows
 
 
-def tail_phase(args):
+def ptxas_report(log):
+    """{kernel's mangled name: (registers, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v output."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ")[1].strip()
+            spills = (0, 0)
+        elif "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spills = (nums[1], nums[2])  # stack frame, stores, loads
+        elif "Used " in line and "registers" in line and name is not None:
+            regs = int(line.split("Used ")[1].split()[0])
+            out[name] = (regs, *spills)
+            name = None
+    return out
+
+
+def tail_phase(args, ptxas):
     """K3 on the GS head's own inputs, with and without the merger addend m.
     The library yardstick is cuDNN unfused in bf16: the add, conv2d, relu
-    and conv2d (four calls; three without m)."""
+    and conv2d (four calls; three without m). `ptxas`: the build's report
+    (ptxas_report) for the registers and spills of the instantiation the
+    flagship runs."""
     import torch.nn.functional as F
 
     from vicasplat_tpu_torch.kernels import dpt_tail_reference, fused_dpt_tail
+    from vicasplat_tpu_torch.kernels.dpt_tail import (
+        cluster_size,
+        feature_slice,
+        out_slices,
+    )
 
     t0 = time.perf_counter()
     a, m, w1, b1, w2, b2 = args
@@ -331,8 +358,25 @@ def tail_phase(args):
         nbytes = 2.0 * (n_in * a.numel() + N * H * W * O + w1.numel() + w2.numel())
         r["bound_ms"], r["bound_by"] = bound(flops, H100_BF16_FLOPS, nbytes)
         r["tflops"] = flops / r["ms"] * 1e-9
+        # back to back, the wrapper's host time can set the means: one
+        # call's device kernels by the profiler, and cuDNN's four (three)
+        r["device_ms"] = profile_window(lambda: fused_dpt_tail(a, mm, w1, b1, w2, b2))[1]
+        r["library_device_ms"] = profile_window(lambda: library(a, mm))[1]
+        r["bound_share"] = r["bound_ms"] / r["device_ms"] if r["device_ms"] else None
+        r["cluster"] = cluster_size()
+        # the instantiation this shape runs: feature slice, multi-slice, N2
+        fs = feature_slice(Fd)
+        inst = f"dpt_tail_kernelILi{fs}ELb{int(fs != Fd)}ELi{out_slices(O)[0]}E"
+        found = [v for k, v in ptxas.items() if inst in k]
+        r["registers"], r["spill_store_bytes"], r["spill_load_bytes"] = (
+            found[0] if found else ("not measured",) * 3)
         row_line("k3", t0, f"{label} {r['shape']} (relative err; "
-                 f"{r['tflops']:.1f} TFLOP/s; library: {r['library']})", r, TAIL_TOL)
+                 f"{r['tflops']:.1f} TFLOP/s; device {r['device_ms']:.4f}, library "
+                 f"device {r['library_device_ms']:.4f}; bound share "
+                 + ("not measured" if r["bound_share"] is None else f"{r['bound_share']:.3f}")
+                 + f"; cluster {r['cluster']}; {r['registers']} registers, spills "
+                 f"{r['spill_store_bytes']}/{r['spill_load_bytes']} bytes; library: "
+                 f"{r['library']})", r, TAIL_TOL)
         rows[label] = r
     return rows
 
@@ -1081,7 +1125,7 @@ def main():
         k4 = topk_phase(dev, seen["k4"][0], seen["k4"][1])
         k2 = composite_phase(dev, seen["k2"][0], (256, 256), rcfg.tile_px,
                              min(rcfg.pallas_chunk, rcfg.max_per_tile))
-        k3 = tail_phase(seen.pop("k3"))
+        k3 = tail_phase(seen.pop("k3"), ptxas_report(build.build_logs.get("dpt_tail", "")))
     seen.clear()
 
     # ---- K1's backward, its float32 route, the tiny float32 configuration

@@ -25,6 +25,7 @@ from vicasplat_tpu_torch.ops.rasterize.pallas_composite import (
     composite_tiles_kernel,
     dense_payload,
 )
+from vicasplat_tpu_torch.kernels.dpt_tail import shift_probe
 from vicasplat_tpu_torch.kernels.flash_attn import (
     _forward,
     attention_backward_reference,
@@ -347,10 +348,13 @@ def _tail(device, N, H, W, C, Fd, O, seed=0):
 
 @pytest.mark.parametrize("with_m", [True, False])
 @pytest.mark.parametrize("N,H,W,C,Fd,O", [(2, 32, 256, 256, 256, 83),
-                                          (1, 9, 200, 64, 128, 24)])
+                                          (1, 9, 200, 64, 128, 24),
+                                          (3, 17, 300, 128, 256, 83)])
 def test_dpt_tail_matches_plain(cuda, with_m, N, H, W, C, Fd, O):
-    """The GS head's channels, and a ragged row (W % 128 != 0, odd H) with
-    F = 128."""
+    """The GS head's channels, a ragged row (W % 128 != 0, odd H) with
+    F = 128, and 153 tiles: odd, so the last cluster's second block runs a
+    tile it does not store, and not a multiple of the SMs, so the persistent
+    blocks end unevenly (the multicast release at the schedule's tail)."""
     a, m, w1, b1, w2, b2 = _tail(cuda, N, H, W, C, Fd, O)
     m = m if with_m else None
     before = fused_dpt_tail.launches
@@ -374,13 +378,44 @@ def test_dpt_tail_rejects_what_it_cannot_run(cuda):
         fused_dpt_tail(a.float(), m.float(), w1, b1, w2, b2)
     with pytest.raises(ValueError):  # not channels-last contiguous
         fused_dpt_tail(a.transpose(1, 2), m.transpose(1, 2), w1, b1, w2, b2)
-    with pytest.raises(ValueError):  # C = 48 is not a multiple of 32
+    # C = 48 is not a multiple of 64, one 128-byte TMA row of bf16 (the
+    # kernel took multiples of 32 before its TMA design; the JAX gates send
+    # multiples of 128)
+    with pytest.raises(ValueError):
         fused_dpt_tail(a[..., :48].contiguous(), None, w1[:, :48], b1, w2, b2)
     with pytest.raises(ValueError):  # F = 64 has no kernel
         fused_dpt_tail(a, m, w1[:64], b1[:64], w2[:, :64], b2)
     # F = 384, a multiple of 128, is taken
     a, m, w1, b1, w2, b2 = _tail(cuda, 1, 8, 16, 128, 384, 8)
     assert fused_dpt_tail(a, m, w1, b1, w2, b2).shape == (1, 8, 16, 8)
+
+
+@pytest.mark.parametrize("with_m", [True, False])
+def test_dpt_tail_is_deterministic(cuda, with_m):
+    """Two calls on the same inputs are bit-identical: each output is summed
+    by one block in a fixed order, whatever block and SM run it."""
+    a, m, w1, b1, w2, b2 = _tail(cuda, 3, 17, 300, 128, 256, 83, seed=3)
+    m = m if with_m else None
+    first = fused_dpt_tail(a, m, w1, b1, w2, b2)
+    second = fused_dpt_tail(a, m, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_dpt_tail_shift_probe(cuda):
+    """The dx shift: a wgmma A operand that starts 1-7 rows of 128 bytes
+    past a 1024-byte boundary of a 128-byte-swizzled tile (the descriptor's
+    base offset) gives x[r:r + 64] @ w.T. Products of bf16 are exact in
+    float32; only the order of 64 sums differs."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(136, 64, generator=g, device=cuda).bfloat16()
+    w = torch.randn(64, 64, generator=g, device=cuda).bfloat16()
+    out = shift_probe(x, w)
+    torch.cuda.synchronize()
+    for r in range(8):
+        ref = x[r:r + 64].float() @ w.float().T
+        err = (out[r] - ref).abs().max().item() / ref.abs().max().item()
+        assert err < 1e-5, (r, err)
 
 
 def _tail_error(out, args):

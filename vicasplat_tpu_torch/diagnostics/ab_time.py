@@ -3,7 +3,7 @@ in one tree of the repository, so that two trees can be compared in one
 session on one card:
 
     python vicasplat_tpu_torch/diagnostics/ab_time.py --root TREE --label NAME \
-        [--out ab_time.jsonl]
+        [--mode all|accel] [--out ab_time.jsonl]
 
 TREE is the root of a checkout (this one, or an older commit unpacked with
 git archive); its `vicasplat_tpu_torch` is the one timed, built into its
@@ -18,6 +18,11 @@ one JSON line to --out:
 - k1_host_us: the host time of one K1 forward call (no gradient) at the
   decoder shape, the mean of 200 calls issued back to back, and
   k1_device_ms, the mean device time of those calls.
+With --mode accel, only the accelerator forward (head_tail_backend="pallas",
+so K3 runs in the GS head) at the same weights and frames:
+- accel_forward_ms: median device time (CUDA events) of 10 after 3 warm-ups;
+- accel_device_ms: one forward's device kernels by the profiler, and
+  k3_device_ms, the part of it in K3's kernels (names holding "dpt_tail").
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", required=True)
     p.add_argument("--label", required=True)
+    p.add_argument("--mode", choices=("all", "accel"), default="all")
     p.add_argument("--out", default="ab_time.jsonl")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -66,6 +72,14 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     rec = dict(label=args.label, root=str(root), device=torch.cuda.get_device_name(0))
+    if args.mode == "accel":
+        rec.update(_accel_forward(dev, VicaSplatConfig, VicaNetConfig,
+                                  GaussianAdapterConfig, init_vicasplat,
+                                  vicasplat_forward))
+        print(json.dumps(rec), flush=True)
+        with open(args.out, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        return 0
 
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn(1, s, 12, 64, generator=g, device=dev).bfloat16()
@@ -123,6 +137,41 @@ def main(argv=None):
     with open(args.out, "a") as f:
         f.write(json.dumps(rec) + "\n")
     return 0
+
+
+def _accel_forward(dev, VicaSplatConfig, VicaNetConfig, GaussianAdapterConfig,
+                   init_vicasplat, vicasplat_forward):
+    """The accelerator forward of the tree's package (its classes passed in)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = VicaSplatConfig(backbone=VicaNetConfig(),
+                          gaussian_adapter=GaussianAdapterConfig(sh_degree=4),
+                          head_tail_backend="pallas")
+    model = init_vicasplat(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    model = model.to(torch.bfloat16).eval()
+    gi = torch.Generator(device=dev).manual_seed(1)
+    K = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]], device=dev)
+    context = {"image": torch.rand(1, 8, 256, 256, 3, generator=gi, device=dev) * 2 - 1,
+               "intrinsics": K.expand(1, 8, 3, 3)}
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    with torch.inference_mode():
+        for i in range(13):
+            e0.record()
+            vicasplat_forward(model, context, dtype=torch.bfloat16)
+            e1.record()
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(e0.elapsed_time(e1))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            vicasplat_forward(model, context, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"accel_forward_ms": statistics.median(times), "accel_forward_all_ms": times,
+            "accel_device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "k3_device_ms": sum(e.self_device_time_total for e in kernels
+                                if "dpt_tail" in e.key) / 1e3}
 
 
 if __name__ == "__main__":
