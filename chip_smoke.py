@@ -16,13 +16,18 @@ Phases, each printing lines with their seconds:
             head_tail_backend="pallas" (K3) and RasterizeConfig(backend=
             "pallas", binning="origin") (K2, K4); every kernel's launches
             per forward + render are checked exactly;
+  scene     the covering scene: frame 0 of the synthetic generator's scene
+            0 at the flagship's size (256^2, 524,288 Gaussians) through the
+            accelerator render, whose K2 payload and K4 words are kept;
   k2/k3/k4  each kernel against its plain version on the inputs the
-            accelerator path gives it (and K2 also on a dense payload whose
-            pixels saturate, K4 also on random words), with its time, the
-            plain version's, one library call's where one exists, and the
-            bound of this run's inputs; K3 also with one call's device time
-            by the profiler beside cuDNN's, its share of the bound, its
-            cluster size and ptxas's registers and spills;
+            accelerator path gives it, on the flagship and on the covering
+            scene (and K2 also on a dense payload whose pixels saturate, K4
+            also on random words), with its time, the plain version's, one
+            library call's where one exists, its device time by the profiler
+            (the mean of 20 calls; torch.sort's beside K4's), and the bound
+            of this run's inputs; K3 also with one call's device time beside
+            cuDNN's, its share of the bound, its cluster size and ptxas's
+            registers and spills;
   k1-bwd    K1's backward kernels (dQ, dK, dV) against the float32 plain
             backward at the decoder shape at batch 2, the encoder shape and
             a ragged one, within twice SDPA's bf16 backward error plus a
@@ -32,7 +37,8 @@ Phases, each printing lines with their seconds:
             CPU and one training step, with exact launch counts;
   k1-f32    K1's float32 route (forward, lse, backward) against the
             float32 plain versions at head dims 12, 16 and 64, and at the
-            tiny phase's shape, with the same four times;
+            tiny phase's shape, with the same four times and one call's
+            device time of K1 and of SDPA in float32 by the profiler;
   train     the flagship training step (configs/main.yaml with
             configs/experiment/re10k_8view.yaml: 2 x 8 context frames and
             12 target views of 256^2, bf16 compute over float32 parameters,
@@ -203,40 +209,52 @@ def flash_phase(dev):
     return rows
 
 
-def topk_phase(dev, flagship_words, keep):
-    """K4 on the flagship view's candidate words and on random full-range
-    words of the same shape: exact equality with torch.sort. The library
-    call is torch.sort of the same unsigned values held in int64."""
+def topk_phase(dev, inputs, keep):
+    """K4 on each of `inputs` ({label: (rows, m) words}: the flagship view's
+    candidate words and the covering scene's) and on random full-range words
+    of the flagship's shape: exact equality with torch.sort. The library
+    call is torch.sort of the same unsigned values held in int64; beside the
+    means, one call's device time of each by the profiler."""
     from vicasplat_tpu_torch.kernels import bitonic_topk, topk_reference
     from vicasplat_tpu_torch.kernels.bitonic_topk import from_u32_bits
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(4)
-    rand = torch.randint(-2 ** 31, 2 ** 31, flagship_words.shape, generator=g,
+    rand = torch.randint(-2 ** 31, 2 ** 31, inputs["flagship"].shape, generator=g,
                          device=dev, dtype=torch.int32)
-    for label, w in (("flagship", flagship_words), ("random", rand)):
+    for label, w in dict(inputs, random=rand).items():
         if not torch.equal(bitonic_topk(w, keep), topk_reference(w, keep)):
             raise AssertionError(f"K4 {label}: differs from torch.sort")
-    w = flagship_words
-    values = from_u32_bits(w)
-    rows, m = w.shape
-    stages = int(math.log2(m)) * (int(math.log2(m)) + 1) // 2
-    r = dict(shape=f"({rows}, {m}) u32 words -> ({rows}, {keep})",
-             max_abs_err=0.0, ms=cuda_ms(lambda: bitonic_topk(w, keep)),
-             plain_ms=cuda_ms(lambda: topk_reference(w, keep)),
-             library_ms=cuda_ms(lambda: torch.sort(values, dim=1)))
-    # one compare and two selects a compare-exchange, at the table's 32-bit
-    # (non-tensor) rate; 4 bytes a word in and a kept word out
-    r["bound_ms"], r["bound_by"] = bound(3.0 * stages * rows * m / 2,
-                                         H100_F32_FLOPS, 4.0 * rows * (m + keep))
-    row_line("k4", t0, f"{r['shape']}, exact on flagship and random words", r, 0.0)
-    return r
+    rows = {}
+    for label, w in inputs.items():
+        values = from_u32_bits(w)
+        n, m = w.shape
+        stages = int(math.log2(m)) * (int(math.log2(m)) + 1) // 2
+        r = dict(shape=f"({n}, {m}) u32 words -> ({n}, {keep})",
+                 max_abs_err=0.0, ms=cuda_ms(lambda: bitonic_topk(w, keep)),
+                 plain_ms=cuda_ms(lambda: topk_reference(w, keep)),
+                 library_ms=cuda_ms(lambda: torch.sort(values, dim=1)),
+                 empty_share=(w == -1).float().mean().item(),
+                 device_ms=device_mean_ms(lambda: bitonic_topk(w, keep)),
+                 library_device_ms=device_mean_ms(lambda: torch.sort(values, dim=1)))
+        # one compare and two selects a compare-exchange of the full network,
+        # at the table's 32-bit (non-tensor) rate; 4 bytes a word in and a
+        # kept word out
+        r["bound_ms"], r["bound_by"] = bound(3.0 * stages * n * m / 2,
+                                             H100_F32_FLOPS, 4.0 * n * (m + keep))
+        r["bound_share"] = r["bound_ms"] / r["device_ms"] if r["device_ms"] else None
+        row_line("k4", t0, f"{label} {r['shape']}, exact on {label} and random words, "
+                 f"empty slots {r['empty_share']:.3f} (device {r['device_ms']:.4f}, "
+                 f"torch.sort device {r['library_device_ms']:.4f})", r, 0.0)
+        rows[label] = r
+    return rows
 
 
 def composite_needs(payload, image_shape, tile_px):
-    """What the data needs of K2: (the (pixel, splat) pairs of live splats
-    met by a pixel before its transmittance falls under 1e-4, the payload
-    rows met by any pixel of their tile before it saturates)."""
+    """What the data needs of K2: (the (pixel, splat) pairs that a pixel
+    blends, power <= 0 and alpha >= 1/255, before its transmittance falls
+    under 1e-4, the payload rows met by any pixel of their tile before it
+    saturates)."""
     from vicasplat_tpu_torch.ops.rasterize.tiles import _tile_pixel_centers
 
     pix = _tile_pixel_centers(image_shape, tile_px, payload.device)
@@ -247,11 +265,13 @@ def composite_needs(payload, image_shape, tile_px):
     a = torch.where((power > 0) | (a < 1 / 255), torch.zeros_like(a), a)
     logom = torch.log1p(-a)
     alive = torch.cumsum(logom, -1) - logom >= math.log(EXIT_T)
-    return int(((p[..., 5] > 0) & alive).sum()), int(alive.any(1).sum())
+    return int(((a > 0) & alive).sum()), int(alive.any(1).sum())
 
 
-def composite_phase(dev, flagship_payload, image_shape, tile_px, chunk):
-    """K2 on the flagship view's payload and on a dense one that saturates."""
+def composite_phase(dev, inputs, image_shape, tile_px, chunk):
+    """K2 on each of `inputs` ({label: payload}: the flagship view's and the
+    covering scene's) and on a dense synthetic payload that saturates, with
+    its device time by the profiler (device_mean_ms) beside the means."""
     from vicasplat_tpu_torch.ops.rasterize.pallas_composite import (
         composite_reference,
         composite_tiles_kernel,
@@ -261,10 +281,10 @@ def composite_phase(dev, flagship_payload, image_shape, tile_px, chunk):
     t0 = time.perf_counter()
     bg = torch.zeros(3, device=dev)
     tw = -(-image_shape[1] // tile_px)
+    shape = inputs["flagship"].shape
     rows = {}
-    for label, p in (("flagship", flagship_payload),
-                     ("dense", dense_payload(*flagship_payload.shape[:2], tile_px,
-                                             tw, seed=5, device=dev))):
+    for label, p in dict(inputs, dense=dense_payload(*shape[:2], tile_px, tw, seed=5,
+                                                     device=dev)).items():
         out = composite_tiles_kernel(p, image_shape, tile_px, bg, chunk)
         ref = composite_reference(p, image_shape, tile_px, bg, chunk)
         err = max((a - b).abs().max().item() for a, b in zip(out, ref))
@@ -280,17 +300,36 @@ def composite_phase(dev, flagship_payload, image_shape, tile_px, chunk):
                  plain_ms=cuda_ms(lambda: composite_reference(p, image_shape,
                                                               tile_px, bg, chunk),
                                   iters=5),
-                 library_ms=None)
+                 library_ms=None,
+                 device_ms=device_mean_ms(lambda: composite_tiles_kernel(
+                     p, image_shape, tile_px, bg, chunk)))
         # columns 0-9 of each needed row in (10-15 are padding no arithmetic
         # reads), rgb, depth and alpha out
         r["bound_ms"], r["bound_by"] = bound(
             COMPOSITE_OPS * pairs, H100_F32_FLOPS,
             40.0 * rows_needed + 20.0 * image_shape[0] * image_shape[1])
+        r["bound_share"] = r["bound_ms"] / r["device_ms"] if r["device_ms"] else None
         row_line("k2", t0, f"{label} {r['shape']}, {pairs} pixel-splat pairs and "
                  f"{rows_needed} payload rows needed, alpha mean "
-                 f"{r['alpha_mean']:.4f}", r, tol)
+                 f"{r['alpha_mean']:.4f} (device {r['device_ms']:.4f})", r, tol)
         rows[label] = r
     return rows
+
+
+def covering_scene(dev):
+    """Frame 0 of the synthetic generator's scene 0 (its own settings, but
+    the flagship's 256^2 views and 524,288 Gaussians: a backdrop plane and
+    24 clusters, SH degree 0), as the render's arguments on the card."""
+    from vicasplat_tpu_torch.data import synthetic_scenes as scenes
+    from vicasplat_tpu_torch.ops.rasterize.projection import cov6_from_scale_rot
+
+    cfg = scenes.SyntheticScenesConfig(input_image_shape=(256, 256), n_gaussians=524288)
+    rng = scenes.scene_rng(0, cfg)
+    g = {k: torch.from_numpy(v).to(dev) for k, v in scenes.scene_gaussians(rng, cfg).items()}
+    ext = torch.from_numpy(scenes.scene_trajectory(rng, cfg)[:1]).to(dev)
+    K = torch.from_numpy(scenes.intrinsics_for(cfg)[None]).to(dev)
+    return (g["means"], cov6_from_scale_rot(g["scales"], g["rotations"]), g["harmonics"],
+            g["opacities"], ext, K, cfg.input_image_shape, torch.zeros(3, device=dev), 0)
 
 
 def ptxas_report(log):
@@ -525,6 +564,8 @@ def flash_f32_phase(dev, shapes):
                    plain_ms=cuda_ms(lambda: attention_reference(q, k, v), iters=5),
                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
                    device_ms=profile_window(lambda: _forward(q, k, v, False))[1],
+                   library_device_ms=profile_window(
+                       lambda: F.scaled_dot_product_attention(qt, kt, vt))[1],
                    tflops=fwd_flops / fwd_ms * 1e-9)
         fwd["bound_ms"], fwd["bound_by"] = bound(
             fwd_flops, H100_F32_FLOPS, 4.0 * d * h * b * (2 * sq + 2 * sk))
@@ -535,6 +576,8 @@ def flash_f32_phase(dev, shapes):
                        out_lib, xs, do_t, retain_graph=True)),
                    device_ms=profile_window(
                        lambda: flash_attention_backward(q, k, v, o, lse, do))[1],
+                   library_device_ms=profile_window(lambda: torch.autograd.grad(
+                       out_lib, xs, do_t, retain_graph=True))[1],
                    tflops=bwd_flops / bwd_ms * 1e-9)
         bwd["bound_ms"], bwd["bound_by"] = bound(
             bwd_flops, H100_F32_FLOPS, 4.0 * d * h * b * (4 * sq + 4 * sk) + 4.0 * b * h * sq)
@@ -542,10 +585,12 @@ def flash_f32_phase(dev, shapes):
         phase("k1-f32", t0, f"{label} {shape}: relative errors " + ", ".join(
             f"{n} {e:.1e}" for n, e in errs.items()) + f" (tol {F32_TOL}); forward "
             f"kernel_ms {fwd['ms']:.4f} (device {fwd['device_ms']:.4f}) plain_ms "
-            f"{fwd['plain_ms']:.4f} library_ms {fwd['library_ms']:.4f} bound_ms "
+            f"{fwd['plain_ms']:.4f} library_ms {fwd['library_ms']:.4f} (SDPA device "
+            f"{fwd['library_device_ms']:.4f}) bound_ms "
             f"{fwd['bound_ms']:.4f}; backward kernel_ms {bwd['ms']:.4f} (device "
             f"{bwd['device_ms']:.4f}) plain_ms {bwd['plain_ms']:.4f} library_ms "
-            f"{bwd['library_ms']:.4f} bound_ms {bwd['bound_ms']:.4f}")
+            f"{bwd['library_ms']:.4f} (SDPA device {bwd['library_device_ms']:.4f}) "
+            f"bound_ms {bwd['bound_ms']:.4f}")
         del out_lib, xs
     return rows
 
@@ -826,6 +871,14 @@ def train_phase(dev, dec_depth, reset_counts, counts):
     if bad:
         raise AssertionError(f"K1 training gradients and the plain ones disagree: {bad}")
     return r
+
+
+def device_mean_ms(fn, calls=20):
+    """The mean device time of one call of fn, from `calls` calls back to
+    back under the profiler (the sum of their kernels' device time)."""
+    fn()
+    torch.cuda.synchronize()
+    return profile_window(lambda: [fn() for _ in range(calls)])[1] / calls
 
 
 def profile_window(fn):
@@ -1121,12 +1174,28 @@ def main():
                               spy("k2", composite_tiles_kernel)):
         render(forward("accel"), "accel", views=1)
     rcfg = configs["accel"][1].rasterize
+    # the covering scene, seen through the same render path
+    t0 = time.perf_counter()
+    flagship_seen, seen = seen, {}
+    with torch.inference_mode(), \
+            mock.patch.object(tiles, "bitonic_topk", spy("k4", bitonic_topk)), \
+            mock.patch.object(render_mod, "composite_tiles_kernel",
+                              spy("k2", composite_tiles_kernel)):
+        scene_out = render_mod.render(*covering_scene(dev), cfg=rcfg)
+        torch.cuda.synchronize()
+    scene_seen, seen = seen, flagship_seen
+    phase("scene", t0, f"covering scene (synthetic scene 0, frame 0, 524288 Gaussians, "
+          f"256^2) through the accelerator render: alpha mean "
+          f"{scene_out[2].mean().item():.4f}, min {scene_out[2].min().item():.4f}")
     with torch.inference_mode():  # the captured inputs are inference tensors
-        k4 = topk_phase(dev, seen["k4"][0], seen["k4"][1])
-        k2 = composite_phase(dev, seen["k2"][0], (256, 256), rcfg.tile_px,
+        k4 = topk_phase(dev, {"flagship": seen["k4"][0], "scene": scene_seen["k4"][0]},
+                        seen["k4"][1])
+        k2 = composite_phase(dev, {"flagship": seen["k2"][0], "scene": scene_seen["k2"][0]},
+                             (256, 256), rcfg.tile_px,
                              min(rcfg.pallas_chunk, rcfg.max_per_tile))
         k3 = tail_phase(seen.pop("k3"), ptxas_report(build.build_logs.get("dpt_tail", "")))
     seen.clear()
+    del scene_seen, scene_out
 
     # ---- K1's backward, its float32 route, the tiny float32 configuration
     # through that route, then the flagship training step ----
@@ -1301,8 +1370,10 @@ def main():
         entry("composite", "vicasplat_tpu/ops/rasterize/pallas_composite.py:59",
               k2["flagship"]),
         entry("dpt_tail", "vicasplat_tpu/ops/dpt_tail.py:43", k3["with m"]),
-        entry("bitonic_topk", "vicasplat_tpu/ops/rasterize/pallas_bitonic.py:31", k4),
-    ], "extra": {"composite_dense": k2["dense"], "dpt_tail_without_m": k3["without m"],
+        entry("bitonic_topk", "vicasplat_tpu/ops/rasterize/pallas_bitonic.py:31",
+              k4["flagship"]),
+    ], "extra": {"composite_dense": k2["dense"], "composite_scene": k2["scene"],
+                 "bitonic_topk_scene": k4["scene"], "dpt_tail_without_m": k3["without m"],
                  "flash_attn_encoder": k1["encoder"], "flash_attn_ragged": k1["ragged"],
                  "flash_attn_f32_shapes": k1_f32, "tiny_f32": tiny,
                  "flash_attn_bwd_encoder": k1_bwd["encoder"],

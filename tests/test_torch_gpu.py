@@ -268,6 +268,26 @@ def test_topk_matches_plain(cuda):
         assert torch.equal(out, topk_reference(words, keep))
 
 
+@pytest.mark.parametrize("m", [2, 64, 2048, 32768])
+@pytest.mark.parametrize("keep", ["1", "100", "m/4", "m"])
+def test_topk_pruned_matches_sort(cuda, m, keep):
+    """The pruned network in registers, shuffles and shared memory, exact
+    against torch.sort: full-range words, repeated words and an all-ones
+    row, at one warp (m <= 64), the flagship's m and the largest m."""
+    keep = {"1": 1, "100": min(100, m), "m/4": max(1, m // 4), "m": m}[keep]
+    g = torch.Generator(device=cuda).manual_seed(m + keep)
+    rows = 3 if m == 32768 else 40
+    words = torch.randint(-2 ** 31, 2 ** 31, (rows, m), generator=g, device=cuda,
+                          dtype=torch.int32)
+    words[1, : max(1, m // 2)] = words[1, :1]  # repeated words
+    words[2] = -1  # 0xFFFFFFFF, the binning's empty slot
+    before = bitonic_topk.launches
+    out = bitonic_topk(words, keep)
+    torch.cuda.synchronize()
+    assert bitonic_topk.launches == before + 1
+    assert torch.equal(out, topk_reference(words, keep))
+
+
 def test_topk_rejects_what_it_cannot_run(cuda):
     words = torch.zeros(4, 64, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):  # values in int64, not their 32-bit patterns
@@ -294,6 +314,68 @@ def test_composite_matches_plain(cuda, image_shape, tile_px, K, chunk):
         assert a.shape == b.shape
         err = (a - b).abs().max().item()
         assert err < COMPOSITE_TOL, err
+
+
+def _covering_payload(device):
+    """The origin-binned payload of frame 0 of the synthetic generator's
+    scene 0 (64 x 64, 3,072 Gaussians) at the default tile sizes."""
+    from vicasplat_tpu_torch.data import synthetic_scenes as scenes
+    from vicasplat_tpu_torch.geometry.se3 import rigid_inverse
+    from vicasplat_tpu_torch.ops.rasterize.projection import (
+        cov6_from_scale_rot,
+        project_gaussians,
+    )
+    from vicasplat_tpu_torch.ops.rasterize.tiles import bin_splats_origin
+
+    cfg = scenes.SyntheticScenesConfig()
+    rng = scenes.scene_rng(0, cfg)
+    g = {k: torch.from_numpy(v).to(device) for k, v in
+         scenes.scene_gaussians(rng, cfg).items()}
+    ext = torch.from_numpy(scenes.scene_trajectory(rng, cfg)[0]).to(device)
+    K = torch.from_numpy(scenes.intrinsics_for(cfg)).to(device)
+    splats = project_gaussians(g["means"], cov6_from_scale_rot(g["scales"], g["rotations"]),
+                               g["harmonics"], g["opacities"], rigid_inverse(ext), K,
+                               cfg.input_image_shape, 0)
+    return bin_splats_origin(splats, cfg.input_image_shape, 16, (2, 2), 512)
+
+
+@pytest.mark.parametrize("which", ["sparse", "dense", "not positive definite",
+                                   "ragged", "covering scene"])
+def test_composite_cull_cases_match_plain(cuda, which):
+    """K2 with its per-warp cull against the plain version: low opacities
+    (most rows culled), a dense payload (none), rows whose conic is not
+    positive definite (kept for every warp), a ragged image of 8-pixel
+    tiles, and a small covering scene; two calls are bit-identical. The
+    tolerance is COMPOSITE_TOL's rule for this payload's largest feature
+    (the covering scene's depths reach 6)."""
+    image_shape, tile_px, K, chunk = (64, 64), 16, 512, 128
+    if which == "ragged":
+        image_shape, tile_px, K, chunk = (40, 56), 8, 64, 32
+    th, tw = -(-image_shape[0] // tile_px), -(-image_shape[1] // tile_px)
+    if which == "covering scene":
+        payload = _covering_payload(cuda)
+    else:
+        payload = dense_payload(th * tw, K, tile_px, tw, seed=2, device=cuda)
+    if which == "sparse":
+        payload[..., 5] *= 0.01
+    elif which == "not positive definite":
+        b = torch.sqrt(payload[::3, ::5, 2] * payload[::3, ::5, 4])
+        payload[::3, ::5, 3] = b * 1.5  # indefinite: power > 0 along some lines
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    before = composite_launch.launches
+    out = composite_tiles_kernel(payload, image_shape, tile_px, bg, chunk)
+    again = composite_tiles_kernel(payload, image_shape, tile_px, bg, chunk)
+    torch.cuda.synchronize()
+    assert composite_launch.launches == before + 2
+    ref = composite_reference(payload, image_shape, tile_px, bg, chunk)
+    if which == "covering scene":
+        assert float(out[2].mean()) > 0.8
+    tol = 1e-4 * max(payload[..., 6:10].abs().max().item(), 1.0) + 1e-4
+    for a, a2, b in zip(out, again, ref):
+        assert a.shape == b.shape
+        assert torch.equal(a, a2)
+        err = (a - b).abs().max().item()
+        assert err < tol, (err, tol)
 
 
 def test_composite_grads_with_learnable_background(cuda):

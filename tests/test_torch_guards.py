@@ -39,6 +39,8 @@ def test_port_files_exist():
         assert f"vicasplat_tpu_torch/kernels/{kernel}.py" in names
         assert (PORT / "csrc" / f"{kernel}.cu").exists()
     assert "vicasplat_tpu_torch/ops/rasterize/pallas_composite.py" in names
+    # the synthetic scene generator, copied from the JAX package's data/
+    assert "vicasplat_tpu_torch/data/synthetic_scenes.py" in names
     # K1's backward, its float32 route and the Hopper header they share
     for src in ("flash_attn_bwd.cu", "flash_attn_f32.cu", "hopper.cuh"):
         assert (PORT / "csrc" / src).exists(), src

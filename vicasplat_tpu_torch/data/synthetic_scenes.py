@@ -1,0 +1,128 @@
+"""Synthetic scenes with exact ground-truth poses (port of
+vicasplat_tpu/data/synthetic_scenes.py:25-148): clustered anisotropic
+Gaussians in front of a backdrop plane that spans the frustum, and smooth
+camera trajectories, made with numpy from a seed. The same seed gives the
+same arrays, bit for bit, as the JAX package's generator.
+
+The JAX package renders its golden frames from these with its own
+rasterizer (`render_scene_frames`), which is not ported here. A scene at
+the flagship's size (`SyntheticScenesConfig(input_image_shape=(256, 256),
+n_gaussians=524288)`) covers every pixel of its views, which is what K2 and
+K4 are timed on (chip_smoke.py, phases k2 and k4).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticScenesConfig:
+    """The generator's settings that these functions read, with the JAX
+    package's defaults (its config's dataset fields are not carried)."""
+    n_frames: int = 8             # frames rendered per scene
+    input_image_shape: tuple = (64, 64)
+    n_gaussians: int = 3072
+    n_clusters: int = 24
+    fov_deg: float = 60.0
+    seed: int = 0
+    # spatial-frequency multiplier of the backdrop's colour waves and height
+    # ripple; 1.0 is the generator's default
+    texture_detail: float = 1.0
+
+
+def _look_at(eye: np.ndarray, center: np.ndarray, up: np.ndarray):
+    """c2w with camera -z ... +z forward convention (OpenCV: +z forward,
+    +y down) matching the rasterizer's projection."""
+    f = center - eye
+    f = f / np.linalg.norm(f)
+    r = np.cross(f, up)
+    r = r / np.linalg.norm(r)
+    d = np.cross(f, r)  # down
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 0] = r
+    c2w[:3, 1] = d
+    c2w[:3, 2] = f
+    c2w[:3, 3] = eye
+    return c2w
+
+
+def scene_gaussians(rng: np.random.Generator, cfg: SyntheticScenesConfig):
+    """Clustered, textured random geometry: `n_clusters` anisotropic blobs
+    in the camera frustum plus a far backdrop plane (so every ray
+    terminates — pure-background pixels carry no parallax signal)."""
+    n, k = cfg.n_gaussians, cfg.n_clusters
+    n_back = n // 4
+    n_fg = n - n_back
+    centers = np.stack([
+        rng.uniform(-1.2, 1.2, k),
+        rng.uniform(-0.9, 0.9, k),
+        rng.uniform(1.8, 4.0, k),
+    ], -1)
+    sizes = rng.uniform(0.08, 0.35, (k, 3))
+    palette = rng.uniform(-1.5, 1.5, (k, 3))
+    idx = rng.integers(0, k, n_fg)
+    means = centers[idx] + rng.normal(0, 1, (n_fg, 3)) * sizes[idx]
+    # texture: per-splat color jitter on the cluster palette
+    colors = palette[idx] + rng.normal(0, 0.45, (n_fg, 3))
+    scales = np.exp(rng.normal(np.log(0.035), 0.4, (n_fg, 3)))
+    # backdrop: a wall at z ~ 5.5 spanning the frustum
+    bx = rng.uniform(-4.5, 4.5, n_back)
+    by = rng.uniform(-3.5, 3.5, n_back)
+    td = cfg.texture_detail
+    bz = 5.5 + 0.2 * np.sin(3.0 * td * bx) * np.cos(2.0 * td * by)
+    b_means = np.stack([bx, by, bz], -1)
+    b_colors = np.stack([
+        0.5 * np.sin(2.5 * td * bx) + 0.2 * np.cos(4.0 * td * by),
+        0.5 * np.cos(1.7 * td * bx + 2.0 * td * by),
+        0.4 * np.sin(3.3 * td * by),
+    ], -1) + rng.normal(0, 0.25, (n_back, 3))
+    b_scales = np.exp(rng.normal(np.log(0.12), 0.3, (n_back, 3)))
+
+    means = np.concatenate([means, b_means]).astype(np.float32)
+    colors = np.concatenate([colors, b_colors]).astype(np.float32)
+    scales = np.concatenate([scales, b_scales]).astype(np.float32)
+    quats = rng.normal(0, 1, (n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opac = rng.uniform(0.55, 0.95, n).astype(np.float32)
+    # SH degree 0: color = C0 * sh0 with C0 = 0.2820947917
+    sh0 = (colors / 0.2820947917)[:, :, None]
+    return {"means": means, "scales": scales, "rotations": quats,
+            "harmonics": sh0.astype(np.float32), "opacities": opac}
+
+
+def scene_trajectory(rng: np.random.Generator, cfg: SyntheticScenesConfig):
+    """Smooth forward+lateral arc with look-at jitter. Returns c2w (T,4,4)
+    float32 with meaningful (non-degenerate) rotation AND translation."""
+    T = cfg.n_frames
+    t = np.linspace(0.0, 1.0, T)
+    base = np.array([0.0, 0.0, 0.0])
+    dirv = np.array([rng.uniform(-0.8, 0.8),
+                     rng.uniform(-0.4, 0.4),
+                     rng.uniform(-0.35, 0.55)])
+    wob_f = rng.uniform(1.5, 3.0, 2)
+    wob_a = rng.uniform(0.03, 0.12, 2)
+    eyes = base[None] + t[:, None] * dirv[None]
+    eyes[:, 0] += wob_a[0] * np.sin(2 * np.pi * wob_f[0] * t)
+    eyes[:, 1] += wob_a[1] * np.sin(2 * np.pi * wob_f[1] * t + 1.0)
+    center0 = np.array([rng.uniform(-0.4, 0.4), rng.uniform(-0.3, 0.3),
+                        rng.uniform(2.2, 3.2)])
+    drift = np.array([rng.uniform(-0.5, 0.5), rng.uniform(-0.3, 0.3), 0.0])
+    up = np.array([0.0, -1.0, 0.0])
+    poses = np.stack([
+        _look_at(eyes[i], center0 + t[i] * drift, up) for i in range(T)
+    ])
+    return poses.astype(np.float32)
+
+
+def intrinsics_for(cfg: SyntheticScenesConfig) -> np.ndarray:
+    f = 0.5 / np.tan(np.radians(cfg.fov_deg) / 2)
+    return np.array([[f, 0, 0.5], [0, f, 0.5], [0, 0, 1]], np.float32)
+
+
+def scene_rng(scene_id: int, cfg: SyntheticScenesConfig) -> np.random.Generator:
+    """The generator of scene `scene_id`, as the JAX package's
+    `generate_scene` seeds it: draw `scene_gaussians`, then
+    `scene_trajectory`, from it in that order."""
+    return np.random.default_rng(cfg.seed * 1_000_003 + scene_id)

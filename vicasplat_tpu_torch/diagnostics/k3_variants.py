@@ -112,7 +112,7 @@ def main(argv=None):
             rc = fn(a.data_ptr(), None if mm is None else mm.data_ptr(),
                     packed.w1t.data_ptr(), packed.b1f.data_ptr(), packed.w2p.data_ptr(),
                     packed.b2p.data_ptr(), out.data_ptr(), N, H, W, C, Fd, O,
-                    packed.os_n, packed.n_os, torch.cuda.current_stream().cuda_stream)
+                    packed.os_n, packed.n_os, build.raw_stream(dev))
             if rc != 0:
                 raise RuntimeError(f"launch failed: error {rc}")
         return run

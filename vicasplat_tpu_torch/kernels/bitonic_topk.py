@@ -8,6 +8,10 @@ words travel as their bit patterns in int32 (`to_u32_bits`): the kernel
 reads them as unsigned, and an int32 tensor cannot hold a word wider than
 32 bits. `from_u32_bits` gives the values back in int64, the port's carrier
 of every uint32 key of the JAX package.
+
+`bitonic_topk_pruned_walk` walks the kernel's pruned network (the same
+stages, directions and prunes) on the CPU, so that its order can be held
+against the JAX package's network where no card exists.
 """
 from __future__ import annotations
 
@@ -37,6 +41,51 @@ def topk_reference(words: torch.Tensor, keep: int) -> torch.Tensor:
     """The first `keep` of each row in ascending unsigned order: torch.sort
     of the unsigned values held in int64."""
     return to_u32_bits(torch.sort(from_u32_bits(words), dim=1).values[:, :keep])
+
+
+def pruned_stages(m: int, keep: int):
+    """The kernel's network as (partner distance j, direction bit kdir)
+    stages: a pair (i, i + j) is ascending where (i & kdir) == 0. Runs of R
+    (the next power of two >= keep) are sorted, alternately ascending and
+    descending; then, while more than one run is left, each ascending run
+    takes the minimum with the descending run at distance `len` (kdir = m:
+    every pair ascending) and sorts the bitonic run that gives."""
+    R = 1
+    while R < keep:
+        R <<= 1
+    k = 2
+    while k <= R:
+        j = k >> 1
+        while j:
+            yield j, k
+            j >>= 1
+        k <<= 1
+    length = R
+    while length < m:
+        yield length, m
+        j = R >> 1
+        while j:
+            yield j, length << 1
+            j >>= 1
+        length <<= 1
+
+
+def bitonic_topk_pruned_walk(words: torch.Tensor, keep: int) -> torch.Tensor:
+    """The kernel's function by its own network (`pruned_stages`), in plain
+    PyTorch: (rows, m) int32 bit patterns -> (rows, keep), each row's
+    smallest `keep` in ascending unsigned order."""
+    _check(words, keep)
+    x = from_u32_bits(words)
+    rows, m = x.shape
+    for j, kdir in pruned_stages(m, keep):
+        xr = x.reshape(rows, m // (2 * j), 2, j)
+        lo, hi = xr[:, :, 0], xr[:, :, 1]
+        i = (torch.arange(m // (2 * j))[:, None] * 2 * j + torch.arange(j)[None])
+        asc = (i & kdir) == 0
+        mn, mx = torch.minimum(lo, hi), torch.maximum(lo, hi)
+        x = torch.stack([torch.where(asc, mn, mx), torch.where(asc, mx, mn)],
+                        dim=2).reshape(rows, m)
+    return to_u32_bits(x[:, :keep])
 
 
 def _check(words: torch.Tensor, keep: int):
@@ -72,7 +121,7 @@ def bitonic_topk(words: torch.Tensor, keep: int) -> torch.Tensor:
     out = torch.empty(rows, keep, dtype=torch.int32, device=words.device)
     fn = build.entry("bitonic_topk", "vs_bitonic_topk", _ARGTYPES)
     with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = build.raw_stream(words.device)
         rc = fn(words.data_ptr(), out.data_ptr(), rows, m, keep, stream)
     if rc != 0:
         raise RuntimeError(f"bitonic_topk launch failed: cudaError {rc}")

@@ -10,6 +10,7 @@ its kernel there.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,14 +23,20 @@ MAX_SMEM_BYTES = 227 * 1024  # shared memory one block may use on Hopper
 _ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(chunk: int) -> int:
+    """Shared memory of one block, as the kernel's library computes it."""
+    return build.entry("composite", "vs_composite_smem_bytes", [ctypes.c_int])(chunk)
+
+
 def composite_launch(payload: torch.Tensor, image_shape: tuple, tile_px: int,
                      background: torch.Tensor, chunk: int):
     """payload (tiles, K, 16) float32 on the card -> (rgb (H, W, 3),
     depth (H, W), alpha = 1 - T_final (H, W)), through the kernel.
 
     Raises unless the payload is a contiguous, 16-byte aligned float32 CUDA
-    tensor, a tile has at most 1024 pixels and `chunk` rows fit one block's
-    shared memory.
+    tensor, a tile has at most 1024 pixels, K is a multiple of `chunk` and
+    the kernel's shared memory at `chunk` rows a stage fits one block.
     """
     if payload.device.type != "cuda":
         raise ValueError(f"the composite kernel does not run on {payload.device}")
@@ -39,18 +46,25 @@ def composite_launch(payload: torch.Tensor, image_shape: tuple, tile_px: int,
         raise ValueError("payload is not contiguous and 16-byte aligned")
     if tile_px * tile_px > 1024:
         raise ValueError(f"tile_px {tile_px} gives more than 1024 threads a block")
-    if chunk * PAYLOAD_COLS * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"chunk {chunk} exceeds one block's shared memory")
+    smem = _smem_bytes(chunk)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"chunk {chunk} needs {smem} bytes of shared memory, more "
+                         "than one block has")
     H, W = image_shape
     tw = -(-W // tile_px)
     num_tiles, K, _ = payload.shape
+    if K % chunk:
+        raise ValueError(f"K {K} is not a multiple of chunk {chunk}")
     rgb = payload.new_empty(H, W, 3)
     depth = payload.new_empty(H, W)
     alpha = payload.new_empty(H, W)
-    bg = background.detach().to(payload.device, torch.float32).contiguous()
+    bg = background
+    if bg.device != payload.device or bg.dtype != torch.float32 \
+            or not bg.is_contiguous():
+        bg = bg.detach().to(payload.device, torch.float32).contiguous()
     fn = build.entry("composite", "vs_composite", _ARGTYPES)
     with torch.cuda.device(payload.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = build.raw_stream(payload.device)
         rc = fn(payload.data_ptr(), num_tiles, K, chunk, tile_px, tw, H, W,
                 bg.data_ptr(), rgb.data_ptr(), depth.data_ptr(), alpha.data_ptr(),
                 stream)

@@ -165,7 +165,7 @@ def _launch(a, m, w1, b1, w2, b2):
     out = torch.empty(N, H, W, O, dtype=torch.bfloat16, device=a.device)
     fn = build.entry("dpt_tail", "vs_dpt_tail", _ARGTYPES)
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = build.raw_stream(a.device)
         rc = fn(a.data_ptr(), None if m is None else m.data_ptr(), p.w1t.data_ptr(),
                 p.b1f.data_ptr(), p.w2p.data_ptr(), p.b2p.data_ptr(), out.data_ptr(),
                 N, H, W, C, Fd, O, p.os_n, p.n_os, stream)
@@ -193,7 +193,7 @@ def shift_probe(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     fn = build.entry("dpt_tail", "vs_dpt_tail_shift_probe", [ctypes.c_void_p] * 4)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+                build.raw_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"dpt_tail shift probe failed: error {rc}")
     return out

@@ -131,7 +131,7 @@ def _forward(q, k, v, with_lse: bool):
     fn = (build.entry("flash_attn_f32", "vs_flash_attn_f32_fwd", _F32_FWD_ARGTYPES)
           if f32 else build.entry("flash_attn", "vs_flash_attn_fwd", _FWD_ARGTYPES))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = build.raw_stream(q.device)
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), B, Sq, k.shape[1], H)
         rc = fn(*args, D, stream) if f32 else fn(*args, stream)
@@ -162,7 +162,7 @@ def flash_attention_backward(q, k, v, o, lse, do):
           if f32 else build.entry("flash_attn_bwd", "vs_flash_attn_bwd",
                                   _BWD_ARGTYPES))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = build.raw_stream(q.device)
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], H)
