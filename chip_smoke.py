@@ -6,7 +6,9 @@ Phases, each printing lines with their seconds:
             source, all started together (kernels/build.py), with ptxas's
             registers, shared memory and spills;
   k1        K1 (flash attention) against its plain version at three shapes,
-            with one call's device time beside SDPA's by the profiler;
+            with its device time beside SDPA's (every kernel row's device
+            time is `queued_ms`: the mean of 20 calls queued behind a
+            sleep, so the device runs them back to back);
   flagship  the default path of bench.py: vicasplat_forward on 8 frames of
             256^2 in bf16 (ViT-L encoder, 12-block mix decoder, DPT heads,
             SH degree 4) from random weights made with a seeded
@@ -23,11 +25,10 @@ Phases, each printing lines with their seconds:
             accelerator path gives it, on the flagship and on the covering
             scene (and K2 also on a dense payload whose pixels saturate, K4
             also on random words), with its time, the plain version's, one
-            library call's where one exists, its device time by the profiler
-            (the mean of 20 calls; torch.sort's beside K4's), and the bound
-            of this run's inputs; K3 also with one call's device time beside
-            cuDNN's, its share of the bound, its cluster size and ptxas's
-            registers and spills;
+            library call's where one exists, its device time (torch.sort's
+            beside K4's), and the bound of this run's inputs; K3 also with
+            its device time beside cuDNN's, its share of the bound, its
+            cluster size and ptxas's registers and spills;
   k1-bwd    K1's backward kernels (dQ, dK, dV) against the float32 plain
             backward at the decoder shape at batch 2, the encoder shape and
             a ragged one, within twice SDPA's bf16 backward error plus a
@@ -37,8 +38,8 @@ Phases, each printing lines with their seconds:
             CPU and one training step, with exact launch counts;
   k1-f32    K1's float32 route (forward, lse, backward) against the
             float32 plain versions at head dims 12, 16 and 64, and at the
-            tiny phase's shape, with the same four times and one call's
-            device time of K1 and of SDPA in float32 by the profiler;
+            tiny phase's shape, with the same four times and the device
+            time of K1 and of SDPA in float32;
   train     the flagship training step (configs/main.yaml with
             configs/experiment/re10k_8view.yaml: 2 x 8 context frames and
             12 target views of 256^2, bf16 compute over float32 parameters,
@@ -61,7 +62,42 @@ Phases, each printing lines with their seconds:
             forward (K2) against the plain forward of the same inputs, and
             the gradients to means, opacities, a pose delta and a learnable
             background (both backwards are the plain recompute);
-  plain-k1  the default forward with K1 swapped for its plain version.
+  plain-k1  the default forward with K1 swapped for its plain version;
+  eval      the port's test mode (vicasplat_tpu_torch.main.test) on the
+            repository's trained checkpoint
+            (outputs/synthetic_pose/ckpt_committed/weights_latest.npz, the
+            synthetic_pose model: 64^2, encoder 384 x 6, decoder 384 x 4,
+            linear heads) over the 8 held-out scenes with 100 pose-alignment
+            steps and the default render: each scene's PSNR, SSIM and ATE,
+            the means held to the JAX package's
+            (vicasplat_tpu_torch/evaluation/reference_synthetic_pose_96k.json,
+            tools/jax_eval_reference.py), the Benchmarker's seconds per
+            section, peak memory, the files written, K1's launches exactly;
+            K1 held against its plain version on the first scene's own
+            inputs (every decoder block's q, k, v of its bf16 encode), with
+            its times (the `trained` row); then the port's eval_pose on the
+            same arguments, its summary (ATE, RPE, pose AUC) held to the
+            JAX package's PoseEvaluator and pose_metrics.json checked;
+  eval-accel the same run with decoder.rasterize.backend=pallas and
+            binning=origin: K2 and K4 launches exactly per scene (once a
+            view in each of the 101 renders), each scene's scores held to
+            eval's. Beside it, two child processes
+            (vicasplat_tpu_torch/diagnostics/eval_split.py) run the same
+            configuration with K2 and K4 swapped for their plain versions,
+            the plain compositing summed in chunks of 128 rows
+            (eval-origin) and of 64 (the rounding floor): eval-accel's
+            per-scene gap to eval-origin (the kernels' effect) is held
+            within twice the floor's plus a small floor, and eval-origin's
+            gap to eval (the binning's effect) is printed; then one trained
+            view (the first scene's first target, after alignment) with its
+            alpha mean, saturated pixels and tiles, and K2 and K4 timed on
+            its inputs;
+  eval-flagship evaluate_scene at the flagship width, on the accelerator
+            model's random weights, on one synthetic scene generated at
+            256^2 (524,288 Gaussians, 8 frames as context and targets),
+            with the pose-alignment steps cut to 10 (printed as reduced):
+            K1, K3, K2 and K4 with exact launches, finite scores, shapes and
+            the files written, seconds per section and peak memory.
 Then a JSON line of kernels, the nvidia-smi line, and the result line.
 Float32 convolutions run in full float32 (cudnn.allow_tf32 = False), since
 K3's plain version is the reference.
@@ -69,17 +105,51 @@ K3's plain version is the reference.
 Usage, from the repository root: python3 chip_smoke.py
 It needs one CUDA card; without one it exits non-zero and prints no result.
 """
+import contextlib
 import dataclasses
 import importlib
 import json
 import math
+import pathlib
 import statistics
 import subprocess
 import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+# the repository's trained checkpoint, and the JAX package's scores of it
+# (tools/jax_eval_reference.py)
+EVAL_NPZ = "outputs/synthetic_pose/ckpt_committed/weights_latest.npz"
+EVAL_REF = "vicasplat_tpu_torch/evaluation/reference_synthetic_pose_96k.json"
+# the port's means over the 8 held-out scenes against the JAX reference's:
+# bf16 encodes on two devices and 100 Adam steps of pose alignment through
+# two rasterizers that round differently
+EVAL_TOL = {"psnr": 0.15, "ssim": 0.01, "ate": 0.01}
+# eval_pose's summary against the JAX PoseEvaluator's, on the same bf16
+# encodes as EVAL_TOL's: ATE and RPE in scene units, RPE's rotation in
+# degrees, the pose AUCs as fractions
+POSE_TOL = {"ate": 0.01, "rpe_trans": 0.01, "rpe_rot": 0.1, "auc@5": 0.01,
+            "auc@10": 0.01, "auc@20": 0.01, "auc@30": 0.01}
+# eval-accel against eval, per scene: the same encode (ATE equal), then two
+# differences that 100 Adam steps of pose alignment amplify: origin binning
+# keeps other splats than the default binning where a tile holds more than
+# max_per_tile (every tile of these scenes does), and K2 rounds otherwise
+# than its plain version. On an H100 the binning alone moved a scene by up
+# to 0.0112 dB and 0.00174 SSIM, K2 alone by up to 0.0128 dB and 0.00039
+# SSIM (vicasplat_tpu_torch/diagnostics/eval_split.py)
+ACCEL_TOL = {"psnr": 0.05, "ssim": 0.002, "ate": 0.002}
+# eval-accel against eval-origin (the same binning, K2 and K4 swapped for
+# their plain versions), per scene: at most twice as far as the plain
+# compositing summed in chunks of 64 rows is from the same in chunks of 128
+# (the same function in another float32 order through 100 alignment
+# steps), plus this floor
+KERNEL_FLOOR = {"psnr": 1e-3, "ssim": 1e-4, "ate": 1e-6}
+# pose-alignment steps of eval-flagship (the config's 100, cut for time)
+FLAGSHIP_ALIGN_STEPS = 10
 
 # bf16 kernel output against the float32 plain version: a half ulp of bf16
 # is 2^-9 relative, and P enters the second product rounded to bf16
@@ -163,65 +233,72 @@ def row_line(name, t0, label, r, tol):
           + f" bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
 
 
-def flash_phase(dev):
-    """K1 against its plain version at the decoder, encoder and ragged shapes."""
+def flash_phase(dev, inputs=None):
+    """K1 against its plain version on `inputs` ({label: [(q, k, v), ...]},
+    each row timed on its first triple), by default random bf16 at the
+    decoder, encoder and ragged shapes."""
     import torch.nn.functional as F
 
     from vicasplat_tpu_torch.kernels import attention_reference, flash_attention
 
+    if inputs is None:
+        g = torch.Generator(device=dev).manual_seed(1)
+        inputs = {label: [tuple(torch.randn(b, s, h, 64, generator=g, device=dev)
+                                .bfloat16() for s in (sq, sk, sk))]
+                  for label, (b, sq, sk, h) in {"decoder": (1, 2056, 2064, 12),
+                                                "encoder": (8, 257, 257, 16),
+                                                "ragged": (2, 77, 130, 12)}.items()}
     rows = {}
-    g = torch.Generator(device=dev).manual_seed(1)
-    for label, (b, sq, sk, h) in {"decoder": (1, 2056, 2064, 12),
-                                  "encoder": (8, 257, 257, 16),
-                                  "ragged": (2, 77, 130, 12)}.items():
+    for label, triples in inputs.items():
         t0 = time.perf_counter()
-        q = torch.randn(b, sq, h, 64, generator=g, device=dev).bfloat16()
-        k = torch.randn(b, sk, h, 64, generator=g, device=dev).bfloat16()
-        v = torch.randn(b, sk, h, 64, generator=g, device=dev).bfloat16()
-        out = flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        err = (out.float() - attention_reference(q, k, v)).abs().max().item()
+        err = 0.0
+        for q, k, v in triples:
+            out = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            err = max(err, (out.float() - attention_reference(q, k, v)).abs().max().item())
         if not err < FLASH_TOL:
             raise AssertionError(f"K1 {label}: max abs err {err} >= {FLASH_TOL}")
+        q, k, v = triples[0]
+        (b, sq, h, d), sk = q.shape, k.shape[1]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        flops = 4.0 * b * h * sq * sk * 64
-        nbytes = 2.0 * 64 * h * b * (2 * sq + 2 * sk)  # q, k, v in, o out
+        flops = 4.0 * b * h * sq * sk * d
+        nbytes = 2.0 * d * h * b * (2 * sq + 2 * sk)  # q, k, v in, o out
         ms = cuda_ms(lambda: flash_attention(q, k, v))
 
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt)
 
         rows[label] = dict(
-            shape=f"q ({b}, {sq}, {h}, 64), k/v ({b}, {sk}, {h}, 64) bf16",
-            max_abs_err=err, ms=ms,
+            shape=f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {sk}, {h}, {d}) "
+                  f"{str(q.dtype).removeprefix('torch.')}",
+            calls_checked=len(triples), max_abs_err=err, ms=ms,
             plain_ms=cuda_ms(lambda: attention_reference(q, k, v), iters=5),
             library_ms=cuda_ms(library), tflops=flops / ms * 1e-9,
-            # back to back, the wrappers' host time can set these means:
-            # one call's device kernels, by the profiler
-            device_ms=profile_window(lambda: flash_attention(q, k, v))[1],
-            library_device_ms=profile_window(library)[1])
+            # back to back, the wrappers' host time can set these means
+            device_ms=queued_ms(lambda: flash_attention(q, k, v)),
+            library_device_ms=queued_ms(library))
         rows[label]["bound_ms"], rows[label]["bound_by"] = bound(
             flops, H100_BF16_FLOPS, nbytes)
         r = rows[label]
-        row_line("k1", t0, f"{label} ({r['tflops']:.1f} TFLOP/s; device "
-                 f"{r['device_ms']:.4f}, SDPA device {r['library_device_ms']:.4f})",
-                 r, FLASH_TOL)
+        row_line("k1", t0, f"{label} {r['shape']}, {len(triples)} call(s) checked "
+                 f"({r['tflops']:.1f} TFLOP/s; device {r['device_ms']:.4f}, SDPA "
+                 f"device {r['library_device_ms']:.4f})", r, FLASH_TOL)
     return rows
 
 
 def topk_phase(dev, inputs, keep):
     """K4 on each of `inputs` ({label: (rows, m) words}: the flagship view's
-    candidate words and the covering scene's) and on random full-range words
-    of the flagship's shape: exact equality with torch.sort. The library
-    call is torch.sort of the same unsigned values held in int64; beside the
-    means, one call's device time of each by the profiler."""
+    candidate words and the covering scene's, or a trained view's) and on
+    random full-range words of the first input's shape: exact equality with
+    torch.sort. The library call is torch.sort of the same unsigned values
+    held in int64; beside the means, the device time of each."""
     from vicasplat_tpu_torch.kernels import bitonic_topk, topk_reference
     from vicasplat_tpu_torch.kernels.bitonic_topk import from_u32_bits
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(4)
-    rand = torch.randint(-2 ** 31, 2 ** 31, inputs["flagship"].shape, generator=g,
-                         device=dev, dtype=torch.int32)
+    rand = torch.randint(-2 ** 31, 2 ** 31, next(iter(inputs.values())).shape,
+                         generator=g, device=dev, dtype=torch.int32)
     for label, w in dict(inputs, random=rand).items():
         if not torch.equal(bitonic_topk(w, keep), topk_reference(w, keep)):
             raise AssertionError(f"K4 {label}: differs from torch.sort")
@@ -235,8 +312,8 @@ def topk_phase(dev, inputs, keep):
                  plain_ms=cuda_ms(lambda: topk_reference(w, keep)),
                  library_ms=cuda_ms(lambda: torch.sort(values, dim=1)),
                  empty_share=(w == -1).float().mean().item(),
-                 device_ms=device_mean_ms(lambda: bitonic_topk(w, keep)),
-                 library_device_ms=device_mean_ms(lambda: torch.sort(values, dim=1)))
+                 device_ms=queued_ms(lambda: bitonic_topk(w, keep)),
+                 library_device_ms=queued_ms(lambda: torch.sort(values, dim=1)))
         # one compare and two selects a compare-exchange of the full network,
         # at the table's 32-bit (non-tensor) rate; 4 bytes a word in and a
         # kept word out
@@ -268,10 +345,11 @@ def composite_needs(payload, image_shape, tile_px):
     return int(((a > 0) & alive).sum()), int(alive.any(1).sum())
 
 
-def composite_phase(dev, inputs, image_shape, tile_px, chunk):
+def composite_phase(dev, inputs, image_shape, tile_px, chunk, dense=True):
     """K2 on each of `inputs` ({label: payload}: the flagship view's and the
-    covering scene's) and on a dense synthetic payload that saturates, with
-    its device time by the profiler (device_mean_ms) beside the means."""
+    covering scene's, or a trained view's) and, with `dense`, on a dense
+    synthetic payload of the first input's shape that saturates, with its
+    device time beside the means."""
     from vicasplat_tpu_torch.ops.rasterize.pallas_composite import (
         composite_reference,
         composite_tiles_kernel,
@@ -281,10 +359,12 @@ def composite_phase(dev, inputs, image_shape, tile_px, chunk):
     t0 = time.perf_counter()
     bg = torch.zeros(3, device=dev)
     tw = -(-image_shape[1] // tile_px)
-    shape = inputs["flagship"].shape
+    shape = next(iter(inputs.values())).shape
+    if dense:
+        inputs = dict(inputs, dense=dense_payload(*shape[:2], tile_px, tw, seed=5,
+                                                  device=dev))
     rows = {}
-    for label, p in dict(inputs, dense=dense_payload(*shape[:2], tile_px, tw, seed=5,
-                                                     device=dev)).items():
+    for label, p in inputs.items():
         out = composite_tiles_kernel(p, image_shape, tile_px, bg, chunk)
         ref = composite_reference(p, image_shape, tile_px, bg, chunk)
         err = max((a - b).abs().max().item() for a, b in zip(out, ref))
@@ -301,7 +381,7 @@ def composite_phase(dev, inputs, image_shape, tile_px, chunk):
                                                               tile_px, bg, chunk),
                                   iters=5),
                  library_ms=None,
-                 device_ms=device_mean_ms(lambda: composite_tiles_kernel(
+                 device_ms=queued_ms(lambda: composite_tiles_kernel(
                      p, image_shape, tile_px, bg, chunk)))
         # columns 0-9 of each needed row in (10-15 are padding no arithmetic
         # reads), rgb, depth and alpha out
@@ -397,10 +477,10 @@ def tail_phase(args, ptxas):
         nbytes = 2.0 * (n_in * a.numel() + N * H * W * O + w1.numel() + w2.numel())
         r["bound_ms"], r["bound_by"] = bound(flops, H100_BF16_FLOPS, nbytes)
         r["tflops"] = flops / r["ms"] * 1e-9
-        # back to back, the wrapper's host time can set the means: one
-        # call's device kernels by the profiler, and cuDNN's four (three)
-        r["device_ms"] = profile_window(lambda: fused_dpt_tail(a, mm, w1, b1, w2, b2))[1]
-        r["library_device_ms"] = profile_window(lambda: library(a, mm))[1]
+        # back to back, the wrapper's host time can set the means: the
+        # device time of K3 and of cuDNN's four (three) calls
+        r["device_ms"] = queued_ms(lambda: fused_dpt_tail(a, mm, w1, b1, w2, b2))
+        r["library_device_ms"] = queued_ms(lambda: library(a, mm))
         r["bound_share"] = r["bound_ms"] / r["device_ms"] if r["device_ms"] else None
         r["cluster"] = cluster_size()
         # the instantiation this shape runs: feature slice, multi-slice, N2
@@ -498,10 +578,10 @@ def flash_bwd_phase(dev):
         rows[label]["bound_ms"], rows[label]["bound_by"] = bound(
             flops, H100_BF16_FLOPS, nbytes)
         # back to back, torch.autograd.grad's host time can set SDPA's
-        # time: the device kernels of one call of each, by the profiler
-        rows[label]["device_ms"] = profile_window(
-            lambda: flash_attention_backward(q, k, v, o, lse, do))[1]
-        rows[label]["library_device_ms"] = profile_window(library)[1]
+        # time: the device time of each
+        rows[label]["device_ms"] = queued_ms(
+            lambda: flash_attention_backward(q, k, v, o, lse, do))
+        rows[label]["library_device_ms"] = queued_ms(library)
         del out_lib, xs
         r = rows[label]
         phase("k1-bwd", t0, f"{label} {r['shape']}: relative errors " + ", ".join(
@@ -563,9 +643,9 @@ def flash_f32_phase(dev, shapes):
                    errors=errs, ms=fwd_ms,
                    plain_ms=cuda_ms(lambda: attention_reference(q, k, v), iters=5),
                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-                   device_ms=profile_window(lambda: _forward(q, k, v, False))[1],
-                   library_device_ms=profile_window(
-                       lambda: F.scaled_dot_product_attention(qt, kt, vt))[1],
+                   device_ms=queued_ms(lambda: _forward(q, k, v, False)),
+                   library_device_ms=queued_ms(
+                       lambda: F.scaled_dot_product_attention(qt, kt, vt)),
                    tflops=fwd_flops / fwd_ms * 1e-9)
         fwd["bound_ms"], fwd["bound_by"] = bound(
             fwd_flops, H100_F32_FLOPS, 4.0 * d * h * b * (2 * sq + 2 * sk))
@@ -574,10 +654,10 @@ def flash_f32_phase(dev, shapes):
                    errors=errs, ms=bwd_ms, plain_ms=cuda_ms(plain_bwd, iters=5),
                    library_ms=cuda_ms(lambda: torch.autograd.grad(
                        out_lib, xs, do_t, retain_graph=True)),
-                   device_ms=profile_window(
-                       lambda: flash_attention_backward(q, k, v, o, lse, do))[1],
-                   library_device_ms=profile_window(lambda: torch.autograd.grad(
-                       out_lib, xs, do_t, retain_graph=True))[1],
+                   device_ms=queued_ms(
+                       lambda: flash_attention_backward(q, k, v, o, lse, do)),
+                   library_device_ms=queued_ms(lambda: torch.autograd.grad(
+                       out_lib, xs, do_t, retain_graph=True)),
                    tflops=bwd_flops / bwd_ms * 1e-9)
         bwd["bound_ms"], bwd["bound_by"] = bound(
             bwd_flops, H100_F32_FLOPS, 4.0 * d * h * b * (4 * sq + 4 * sk) + 4.0 * b * h * sq)
@@ -873,12 +953,31 @@ def train_phase(dev, dec_depth, reset_counts, counts):
     return r
 
 
-def device_mean_ms(fn, calls=20):
-    """The mean device time of one call of fn, from `calls` calls back to
-    back under the profiler (the sum of their kernels' device time)."""
+def queued_ms(fn, calls=20, sleep_cycles=200_000_000):
+    """The mean device time of one call of fn, every kernel row's device
+    timer: the stream first sleeps (torch.cuda._sleep, at least 0.1 s) while
+    the host queues `calls` calls behind it, so the events around them time
+    the device's work back to back, with no host gaps. (The profiler's
+    kernel records, which this script used before, came back incomplete
+    after the test-mode runs: half of a dense payload's K2 time, none of a
+    trained view's. Its cause was not found.)"""
     fn()
     torch.cuda.synchronize()
-    return profile_window(lambda: [fn() for _ in range(calls)])[1] / calls
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    # 2e8 cycles last at least 0.1 s at the H100's highest clock (1.98 GHz)
+    if host_ms > 50.0:
+        raise AssertionError(f"queueing {calls} calls took {host_ms:.2f} ms: "
+                             "not all behind the sleep")
+    return start.elapsed_time(end) / calls
 
 
 def profile_window(fn):
@@ -1014,6 +1113,350 @@ def check_outputs(out, rendered):
     if bad:
         raise AssertionError(f"flagship outputs fail: {bad}")
     return n_gauss
+
+
+def saturation(payload, image_shape, tile_px):
+    """(share of pixels, share of tiles all of whose pixels) whose
+    transmittance falls under EXIT_T over their tile's payload rows, as the
+    plain compositing counts them."""
+    from vicasplat_tpu_torch.ops.rasterize.tiles import _tile_pixel_centers
+
+    pix = _tile_pixel_centers(image_shape, tile_px, payload.device)
+    p = payload[:, None]
+    dx, dy = pix[..., 0:1] - p[..., 0], pix[..., 1:2] - p[..., 1]
+    power = -0.5 * (p[..., 2] * dx * dx + p[..., 4] * dy * dy) - p[..., 3] * dx * dy
+    a = torch.clamp(p[..., 5] * torch.exp(power.clamp(max=0.0)), max=0.99)
+    a = torch.where((power > 0) | (a < 1 / 255), torch.zeros_like(a), a)
+    done = torch.log1p(-a).sum(-1) < math.log(EXIT_T)  # (tiles, pixels)
+    return done.float().mean().item(), done.all(1).float().mean().item()
+
+
+def eval_args(name, extra=()):
+    """The synthetic_pose test mode on the committed checkpoint, with the
+    JAX package's own arguments (tools/jobs/054_nvs_eval_v6_final.py),
+    writing under build/chip_smoke_eval/<name>."""
+    return ["+experiment=synthetic_pose", "mode=test", "dataset.synthetic.n_scenes=4096",
+            f"checkpointing.load={ROOT / EVAL_NPZ}",
+            f"test.output_path={ROOT / 'build/chip_smoke_eval' / name}", *extra]
+
+
+def eval_run(dev, name, extra, reset_counts, counts, keep_first=False, patches=()):
+    """The port's main.test on eval_args(name, extra), under `patches`, with
+    each scene's kernel launches (and, with keep_first, the first scene's
+    batch and result); checks the files and keys it writes."""
+    from vicasplat_tpu_torch import main as tmain
+    from vicasplat_tpu_torch.evaluation import nvs_eval
+    from vicasplat_tpu_torch.utils.config import parse_cli
+
+    cfg = parse_cli(eval_args(name, extra))
+    per_scene, first = [], {}
+    evaluate = nvs_eval.evaluate_scene
+
+    def counted(model, model_cfg, dec_cfg, eval_cfg, batch, **kw):
+        before = counts()
+        r = evaluate(model, model_cfg, dec_cfg, eval_cfg, batch, **kw)
+        torch.cuda.synchronize()
+        after = counts()
+        per_scene.append(dict(scene=r["scene"], views=batch["target"]["image"].shape[1],
+                              launches={k: after[k] - before[k] for k in after}))
+        if keep_first and not first:
+            first.update(batch=batch, result=r)
+        return r
+
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(nvs_eval, "evaluate_scene", counted))
+        for patch in patches:
+            stack.enter_context(patch)
+        summary, results = tmain.test(cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = counts()
+    out = pathlib.Path(cfg.test.output_path)
+    bench = json.loads((out / "benchmark.json").read_text())
+    memory = json.loads((out / "peak_memory.json").read_text())
+    written = json.loads((out / "scores_all_avg.json").read_text())
+    missing = [str(f) for f in
+               [out / r["scene"] / n for r in results
+                for n in ("transforms.json", "compare.png", "color/000.png",
+                          "context/000.png")] if not f.exists()]
+    if missing or written != json.loads(json.dumps(summary)) \
+            or sorted(bench) != ["decoder", "encoder", "pose_align"] \
+            or "peak_bytes_in_use" not in memory.get("device_0", {}):
+        raise AssertionError(f"test mode outputs: missing {missing[:4]}, benchmark "
+                             f"keys {sorted(bench)}, memory {memory}")
+    bad = [(r["scene"], k) for r in results for k in ("psnr", "ssim", "ate")
+           if not math.isfinite(r.get(k, math.nan))]
+    if len(results) != 8 or bad:
+        raise AssertionError(f"{len(results)} scenes scored, non-finite {bad}")
+    return dict(summary=summary, scenes=results, per_scene=per_scene, launches=launches,
+                wall_s=wall, sections={k: v["mean_warm_s"] for k, v in bench.items()},
+                section_totals={k: v["total_s"] for k, v in bench.items()},
+                peak_gb=memory["device_0"]["peak_bytes_in_use"] / 1e9, first=first,
+                cfg=cfg)
+
+
+def eval_line(name, t0, smi, r):
+    scenes = "; ".join(f"{x['scene']} psnr {x['psnr']:.4f} ssim {x['ssim']:.4f} "
+                       f"ate {x['ate']:.4f}" for x in r["scenes"])
+    m = r["summary"]
+    phase(name, t0, f"{scenes}; means psnr {m['psnr']:.4f} ssim {m['ssim']:.4f} ate "
+          f"{m['ate']:.4f} rpe_trans {m['rpe_trans']:.4f} rpe_rot {m['rpe_rot']:.4f}; "
+          f"launches {r['launches']}")
+    phase(name, t0, f"[{smi}] test mode {r['wall_s']:.2f} s; seconds a scene (mean "
+          "after the first): " + ", ".join(f"{k} {v:.4f}" for k, v in r["sections"].items())
+          + "; totals " + ", ".join(f"{k} {v:.2f}" for k, v in r["section_totals"].items())
+          + f"; peak allocated {r['peak_gb']:.3f} GB")
+
+
+def eval_phases(dev, smi, reset_counts, counts, zero, model_acc, flagship_cfg):
+    """Phases eval, eval-accel and eval-flagship (see the module's
+    docstring)."""
+    from vicasplat_tpu_torch import eval_pose
+    from vicasplat_tpu_torch.data.data_module import collate, to_device
+    from vicasplat_tpu_torch.data.synthetic_scenes import (
+        DatasetSyntheticScenes,
+        SyntheticScenesConfig,
+    )
+    from vicasplat_tpu_torch.data.view_samplers import make_view_sampler
+    from vicasplat_tpu_torch.decoder.splatting import (
+        DecoderSplattingConfig,
+        decoder_forward,
+    )
+    from vicasplat_tpu_torch.evaluation.nvs_eval import (
+        EvalConfig,
+        evaluate_scene,
+        make_pose_align_step,
+        save_scene_outputs,
+    )
+    from vicasplat_tpu_torch.kernels import bitonic_topk, flash_attention
+    from vicasplat_tpu_torch.models import vicanet
+    from vicasplat_tpu_torch.ops.rasterize import RasterizeConfig, tiles
+    from vicasplat_tpu_torch.ops.rasterize.pallas_composite import composite_tiles_kernel
+    from vicasplat_tpu_torch.utils.benchmarker import Benchmarker
+    from vicasplat_tpu_torch.utils.config import parse_cli
+
+    render_mod = importlib.import_module("vicasplat_tpu_torch.ops.rasterize.render")
+    ref = json.loads((ROOT / EVAL_REF).read_text())
+    rec = {}
+
+    # ---- eval: the default render, held to the JAX package's scores ----
+    t0 = time.perf_counter()
+    dec_depth = parse_cli(eval_args("default")).encoder.backbone.dec_depth
+    k1_seen = []
+
+    def k1_spy(q, k, v):
+        if len(k1_seen) < dec_depth:  # every block of the first encode
+            k1_seen.append((q, k, v))
+        return flash_attention(q, k, v)
+
+    r = eval_run(dev, "default", (), reset_counts, counts,
+                 patches=[mock.patch.object(vicanet, "flash_attention", k1_spy)])
+    steps = r["cfg"].test.pose_align_steps
+    want = dict(zero, flash_attn=dec_depth * 8)
+    if r["launches"] != want:
+        raise AssertionError(f"eval launches {r['launches']}, not {want}")
+    gaps = {k: abs(r["summary"][k] - ref["mean"][k]) for k in EVAL_TOL}
+    eval_line("eval", t0, smi, r)
+    phase("eval", t0, "means against the JAX reference (" + EVAL_REF + "): " + ", ".join(
+        f"{k} {r['summary'][k]:.4f} vs {ref['mean'][k]:.4f} (gap {gaps[k]:.4f}, tol "
+        f"{EVAL_TOL[k]})" for k in EVAL_TOL))
+    bad = [k for k in EVAL_TOL if not gaps[k] <= EVAL_TOL[k]]
+    if bad:
+        raise AssertionError(f"the port's test mode and the JAX reference disagree: {bad}")
+    # K1 on the trained encode's own inputs (the first scene's, every block)
+    with torch.inference_mode():
+        k1t = dict(flash_phase(dev, {"trained": k1_seen})["trained"],
+                   launches=r["launches"]["flash_attn"])
+    del k1_seen
+    # eval_pose on the same arguments, held to the JAX PoseEvaluator
+    reset_counts()
+    tp = time.perf_counter()
+    evaluator = eval_pose.main(eval_args("default"), device=dev)
+    torch.cuda.synchronize()
+    pose_s, pose_launches = time.perf_counter() - tp, counts()
+    pose = evaluator.summary()
+    pose_ref = ref["pose_eval"]["summary"]
+    pose_file = ROOT / "build/chip_smoke_eval/default_pose/pose_metrics.json"
+    written = json.loads(pose_file.read_text()) if pose_file.exists() else None
+    pose_gaps = {k: abs(pose[k] - pose_ref[k]) for k in POSE_TOL}
+    phase("eval", t0, f"[{smi}] eval_pose {pose_s:.2f} s, launches {pose_launches}; "
+          "summary against the JAX PoseEvaluator's: " + ", ".join(
+              f"{k} {pose[k]:.4f} vs {pose_ref[k]:.4f} (gap {pose_gaps[k]:.4f}, tol "
+              f"{POSE_TOL[k]})" for k in POSE_TOL))
+    if written != json.loads(json.dumps(pose)):
+        raise AssertionError(f"eval_pose wrote {written}, not its summary {pose}")
+    if pose_launches != want:
+        raise AssertionError(f"eval_pose launches {pose_launches}, not {want}")
+    bad = [k for k in POSE_TOL if not pose_gaps[k] <= POSE_TOL[k]]
+    if bad:
+        raise AssertionError(f"the port's eval_pose and the JAX reference disagree: {bad}")
+    rec["eval"] = dict(r, first=None, cfg=None, reference=ref["mean"], gaps=gaps,
+                       pose_eval=dict(summary=pose, reference=pose_ref, gaps=pose_gaps,
+                                      seconds=pose_s, launches=pose_launches))
+
+    # ---- eval-accel: K2 and K4 in every render, held to eval per scene;
+    # eval-origin and its rounding floor in two child processes beside it ----
+    t0 = time.perf_counter()
+    split_dir = ROOT / "build/chip_smoke_eval/split"
+    split_dir.mkdir(parents=True, exist_ok=True)
+    children = {name: subprocess.Popen(
+        [sys.executable, "-m", "vicasplat_tpu_torch.diagnostics.eval_split", "--run",
+         name, "--dir", str(split_dir)], cwd=ROOT, stdout=subprocess.DEVNULL)
+        for name in ("origin", "origin64")}
+    try:
+        ra = eval_run(dev, "accel", ["decoder.rasterize.backend=pallas",
+                                     "decoder.rasterize.binning=origin"],
+                      reset_counts, counts, keep_first=True)
+        codes = {name: p.wait(timeout=900) for name, p in children.items()}
+    finally:
+        for p in children.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes.values()):
+        raise AssertionError(f"eval-origin's child processes exited with {codes}")
+    split = {name: json.loads((split_dir / f"{name}.json").read_text())
+             for name in children}
+    for sc in ra["per_scene"]:
+        n = (steps + 1) * sc["views"]
+        if sc["launches"] != dict(zero, flash_attn=dec_depth, composite=n,
+                                  bitonic_topk=n):
+            raise AssertionError(f"eval-accel {sc['scene']} launches {sc['launches']}, "
+                                 f"not K1 {dec_depth}, K2 and K4 {n}")
+
+    def gap(a, b):  # the largest per-scene gap of each score
+        return {k: max(abs(x[k] - y[k]) for x, y in zip(a, b)) for k in ACCEL_TOL}
+
+    diffs = gap(ra["scenes"], r["scenes"])
+    eval_line("eval-accel", t0, smi, ra)
+    phase("eval-accel", t0, f"per-scene launches {ra['per_scene'][0]['launches']} "
+          "(each scene alike; its seconds were taken beside eval-origin's two child "
+          "processes); largest per-scene gap to eval: " + ", ".join(
+              f"{k} {diffs[k]:.5f} (tol {ACCEL_TOL[k]})" for k in ACCEL_TOL))
+    bad = [k for k in ACCEL_TOL if not diffs[k] <= ACCEL_TOL[k]]
+    if bad:
+        raise AssertionError(f"eval-accel and eval disagree per scene: {bad}")
+    for name, rs in split.items():
+        if rs["launches"] != {"flash_attn": dec_depth * 8, "composite": 0,
+                              "bitonic_topk": 0}:
+            raise AssertionError(f"eval-origin ({name}) launches {rs['launches']}")
+    origin = split["origin"]["scenes"]
+    split_gaps = {"binning": gap(origin, r["scenes"]), "kernels": gap(ra["scenes"], origin),
+                  "floor": gap(split["origin64"]["scenes"], origin)}
+    kernel_tol = {k: 2 * split_gaps["floor"][k] + KERNEL_FLOOR[k] for k in KERNEL_FLOOR}
+    phase("eval-accel", t0, "eval-origin (K2 and K4 swapped for their plain versions, "
+          "child processes): means " + ", ".join(
+              f"{k} {split['origin']['mean'][k]:.4f}" for k in ACCEL_TOL)
+          + "; largest per-scene gaps: " + "; ".join(
+              f"{label} " + ", ".join(f"{k} {v:.6f}" for k, v in g.items())
+              for label, g in split_gaps.items())
+          + "; kernels' limit " + ", ".join(f"{k} {v:.6f}" for k, v in kernel_tol.items()))
+    bad = [k for k in kernel_tol if not split_gaps["kernels"][k] <= kernel_tol[k]]
+    if bad:
+        raise AssertionError(f"eval-accel and eval-origin disagree per scene beyond "
+                             f"the rounding floor: {bad}")
+    # one trained view: the first scene's first target after alignment
+    cfg = ra["cfg"]
+    batch, res = ra["first"]["batch"], ra["first"]["result"]
+    tgt = batch["target"]
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*args):
+            seen.setdefault(name, args)
+            return fn(*args)
+        return wrapped
+
+    with torch.inference_mode(), \
+            mock.patch.object(tiles, "bitonic_topk", spy("k4", bitonic_topk)), \
+            mock.patch.object(render_mod, "composite_tiles_kernel",
+                              spy("k2", composite_tiles_kernel)):
+        rot, trans = (torch.from_numpy(res["_deltas"][k]).to(dev)[:, :1]
+                      for k in ("rot", "trans"))
+        view = decoder_forward(cfg.decoder, res["_outputs"]["gaussians"],
+                               tgt["extrinsics"][:, :1], tgt["intrinsics"][:, :1],
+                               tgt["near"][:, :1], tgt["far"][:, :1], (64, 64),
+                               cam_rot_delta=rot, cam_trans_delta=trans)
+        rc = cfg.decoder.rasterize
+        payload, words = seen["k2"][0], seen["k4"][0]
+        pix_sat, tile_sat = saturation(payload, (64, 64), rc.tile_px)
+        k2t = composite_phase(dev, {"trained": payload}, (64, 64), rc.tile_px,
+                              min(rc.pallas_chunk, rc.max_per_tile), dense=False)["trained"]
+        k4t = topk_phase(dev, {"trained": words}, seen["k4"][1])["trained"]
+    alpha = view.alpha.float().mean().item()
+    phase("eval-accel", t0, f"[{smi}] one trained view ({res['scene']}, target 0, 64^2): "
+          f"alpha mean {alpha:.4f}, saturated pixels {pix_sat:.4f}, saturated tiles "
+          f"{tile_sat:.4f}; K2 device {k2t['device_ms']:.4f} ms (bound {k2t['bound_ms']:.4f}), "
+          f"K4 device {k4t['device_ms']:.4f} ms, torch.sort device "
+          f"{k4t['library_device_ms']:.4f} ms")
+    rec["eval_accel"] = dict(ra, first=None, cfg=None, gaps_to_eval=diffs,
+                             split=dict(gaps=split_gaps, kernel_tol=kernel_tol,
+                                        origin_mean=split["origin"]["mean"]),
+                             trained_view=dict(
+                                 scene=res["scene"], alpha_mean=alpha,
+                                 saturated_pixels=pix_sat, saturated_tiles=tile_sat,
+                                 flash_attn=k1t, composite=k2t, bitonic_topk=k4t))
+    del ra, batch, res, seen, payload, words
+
+    # ---- eval-flagship: the flagship width on one synthetic 256^2 scene ----
+    t0 = time.perf_counter()
+    scfg = SyntheticScenesConfig(n_scenes=0, n_val_scenes=0, n_test_scenes=1,
+                                 input_image_shape=(256, 256), n_gaussians=524288)
+    sampler = make_view_sampler({"name": "sequential", "num_context_views": 8,
+                                 "min_distance_between_context_views": 1,
+                                 "max_distance_between_context_views": 1}, "test")
+    example = next(iter(DatasetSyntheticScenes(scfg, "test", sampler, device=dev)))
+    batch = to_device(collate([example]), dev)
+    views = batch["target"]["image"].shape[1]
+    dec = DecoderSplattingConfig(rasterize=RasterizeConfig(backend="pallas",
+                                                           binning="origin"))
+    out_dir = ROOT / "build/chip_smoke_eval/flagship"
+    ecfg = EvalConfig(output_path=str(out_dir), pose_align_steps=FLAGSHIP_ALIGN_STEPS)
+    bench = Benchmarker()
+    torch.cuda.reset_peak_memory_stats()
+    align = make_pose_align_step(flagship_cfg, dec, ecfg, (256, 256))
+    reset_counts()
+    rf = evaluate_scene(model_acc, flagship_cfg, dec, ecfg, batch, align_fn=align,
+                        benchmarker=bench)
+    torch.cuda.synchronize()
+    launches = counts()
+    save_scene_outputs(rf, batch, ecfg, flagship_cfg)
+    n = (FLAGSHIP_ALIGN_STEPS + 1) * views
+    want = dict(zero, flash_attn=flagship_cfg.backbone.dec_depth, dpt_tail=1,
+                composite=n, bitonic_topk=n)
+    if launches != want:
+        raise AssertionError(f"eval-flagship launches {launches}, not {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    scores = {k: rf[k] for k in ("psnr", "ssim", "ate", "rpe_trans", "rpe_rot",
+                                 "coverage_truncated_frac", "coverage_tile_overflow_frac")
+              if k in rf}
+    files = [out_dir / rf["scene"] / f for f in ("transforms.json", "compare.png",
+                                                   "color/000.png", "context/007.png")]
+    checks = {
+        "finite scores": all(math.isfinite(scores.get(k, math.nan))
+                             for k in ("psnr", "ssim", "ate")),
+        "gaussians": rf["_outputs"]["gaussians"].means.numel() // 3 == 8 * 256 * 256,
+        "rendered": rf["_rendered"].shape == (views, 256, 256, 3),
+        "finite render": bool(np.isfinite(rf["_rendered"]).all()),
+        "files": all(f.exists() for f in files),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"eval-flagship fails {bad}: scores {scores}")
+    secs = {k: v["mean_s"] for k, v in bench.summarize().items()}
+    reduced = (f"pose_align_steps {FLAGSHIP_ALIGN_STEPS} of the test config's 100; "
+               "one scene")
+    phase("eval-flagship", t0, f"[{smi}] {rf['scene']} at 256^2 (524288 Gaussians in the "
+          f"scene, 8 context frames, {views} targets) through K1, K3, K2, K4: launches "
+          f"{launches}; scores {scores}; seconds " + ", ".join(
+              f"{k} {v:.4f}" for k, v in secs.items())
+          + f"; peak allocated {peak_gb:.3f} GB; reduced: {reduced}")
+    rec["eval_flagship"] = dict(scene=rf["scene"], views=views, launches=launches,
+                                scores=scores, seconds=secs, peak_gb=peak_gb,
+                                reduced=reduced)
+    return rec
 
 
 def main():
@@ -1342,6 +1785,11 @@ def main():
     if bad:
         raise AssertionError(f"kernel and plain forward disagree: {bad}")
 
+    # ---- the trained checkpoint's test mode, and the flagship's eval ----
+    del ref, alt
+    evals = eval_phases(dev, smi, reset_counts, counts, zero, model_acc,
+                        dataclasses.replace(cfg, head_tail_backend="pallas"))
+
     def entry(name, replaces, r, launches=None, source=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape")
@@ -1379,7 +1827,15 @@ def main():
                  "flash_attn_bwd_encoder": k1_bwd["encoder"],
                  "flash_attn_bwd_ragged": k1_bwd["ragged"],
                  "flash_attn_train_launches_per_step":
-                     train["steps"][-1]["launches"]["flash_attn"]},
+                     train["steps"][-1]["launches"]["flash_attn"],
+                 # K1 on a trained encode, K2 and K4 on a trained view, and
+                 # the launches in the trained checkpoint's test mode and
+                 # the flagship's eval
+                 "flash_attn_trained": evals["eval_accel"]["trained_view"]["flash_attn"],
+                 "composite_trained": evals["eval_accel"]["trained_view"]["composite"],
+                 "bitonic_topk_trained": evals["eval_accel"]["trained_view"]["bitonic_topk"],
+                 "eval_launches": {k: evals[k]["launches"] for k in
+                                   ("eval", "eval_accel", "eval_flagship")}},
         "train": {k: train[k] for k in ("batch", "targets", "cuts", "train_step_ms",
                                         "step_ms", "peak_gb", "device_ms",
                                         "k1_device_ms", "k1_share", "top",
@@ -1391,6 +1847,7 @@ def main():
                     "render_device_kernel_ms": prof[which]["render"][1]}
             for which in configs},
         "forward_plain_attention_ms": plain_fwd_ms,
+        "eval": evals,
         "wall_s": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -94,7 +94,8 @@ def _qkv(shape_q, sk, device, seed=0):
     "shape_q,sk",
     [((1, 2056, 12, 64), 2064),   # decoder joint attention
      ((8, 257, 16, 64), 257),     # encoder attention
-     ((2, 77, 12, 64), 130)],     # ragged tiles on both axes
+     ((2, 77, 12, 64), 130),      # ragged tiles on both axes
+     ((1, 68, 6, 64), 72)],       # the synthetic_pose checkpoint's decoder
 )
 def test_flash_matches_plain(cuda, shape_q, sk):
     q, k, v = _qkv(shape_q, sk, cuda)
@@ -562,3 +563,80 @@ def test_dpt_gs_head_feature_dim_384(cuda):
     assert out.shape == (2, 64, 64, 83)
     err = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
     assert err < TAIL_TOL, err
+
+
+_NPZ = "outputs/synthetic_pose/ckpt_committed/weights_latest.npz"
+# the committed checkpoint in float32 on the card against the CPU, relative
+# to each output's largest entry: float32 on both sides (convolutions
+# without TF32), summed in other orders through 10 blocks and linear heads
+TRAINED_TOL = 1e-3
+# one scene through the accelerator render (K2, K4) against the default
+# render, after 2 pose-alignment steps: chip_smoke.py's eval-accel limits
+ACCEL_TOL = {"psnr": 0.05, "ssim": 0.002, "ate": 0.002}
+
+
+def _pose_config(*extra):
+    import pathlib
+
+    from vicasplat_tpu_torch.utils.config import load_config
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    return load_config(root / "configs/main.yaml", "synthetic_pose", [
+        "mode=test", "dataset.synthetic.n_scenes=4096",
+        f"checkpointing.load={root / _NPZ}", *extra])
+
+
+def test_committed_weights_on_card(cuda):
+    """The committed float16 npz loaded onto the card: a float32 forward of
+    4 frames of 64^2 through K1's float32 route agrees with the CPU."""
+    from vicasplat_tpu_torch.main import build_model
+    from vicasplat_tpu_torch.models import vicasplat_forward
+
+    cfg = _pose_config()
+    gpu, cpu = build_model(cfg, cuda), build_model(cfg, "cpu")
+    assert all(p.device.type == "cuda" and p.dtype == torch.float32
+               for p in gpu.parameters())
+    g = torch.Generator().manual_seed(7)
+    ctx = {"image": torch.rand(1, 4, 64, 64, 3, generator=g) * 2 - 1,
+           "intrinsics": torch.tensor([[0.87, 0, 0.5], [0, 0.87, 0.5], [0, 0, 1]]
+                                      ).expand(1, 4, 3, 3).contiguous()}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            before = flash_attention.f32_launches
+            out = vicasplat_forward(gpu, {k: v.to(cuda) for k, v in ctx.items()},
+                                    dtype=torch.float32)
+            torch.cuda.synchronize()
+            assert flash_attention.f32_launches == before + cfg.encoder.backbone.dec_depth
+            ref = vicasplat_forward(cpu, ctx, dtype=torch.float32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for name, a, r in (("means", out["gaussians"].means, ref["gaussians"].means),
+                       ("opacities", out["gaussians"].opacities, ref["gaussians"].opacities),
+                       ("poses", out["gaussian_camera_extrins"],
+                        ref["gaussian_camera_extrins"])):
+        assert _rel(a.cpu(), r) < TRAINED_TOL, (name, _rel(a.cpu(), r))
+
+
+def test_one_scene_through_eval_accel(cuda, tmp_path):
+    """main.test on synthetic_04100 with 2 alignment steps, in the default
+    configuration and with K2 and K4 (decoder.rasterize.backend=pallas,
+    binning=origin): K2 and K4 launch once a view in each of the 3 renders,
+    K1 once a decoder block, and the scores agree."""
+    from vicasplat_tpu_torch import main as tmain
+
+    common = ("dataset.synthetic.n_test_scenes=1", "test.pose_align_steps=2")
+    _, (ref,) = tmain.test(_pose_config(*common, f"test.output_path={tmp_path / 'd'}"),
+                           device=cuda)
+    cfg = _pose_config(*common, f"test.output_path={tmp_path / 'a'}",
+                       "decoder.rasterize.backend=pallas", "decoder.rasterize.binning=origin")
+    before = (composite_launch.launches, bitonic_topk.launches, flash_attention.launches)
+    _, (got,) = tmain.test(cfg, device=cuda)
+    torch.cuda.synchronize()
+    after = (composite_launch.launches, bitonic_topk.launches, flash_attention.launches)
+    assert [a - b for a, b in zip(after, before)] == [3 * 7, 3 * 7, 4]
+    assert got["scene"] == ref["scene"] == "synthetic_04100"
+    for k, tol in ACCEL_TOL.items():
+        assert abs(got[k] - ref[k]) <= tol, (k, got[k], ref[k])
+    assert (tmp_path / "a" / "synthetic_04100" / "compare.png").exists()

@@ -1,2 +1,2 @@
 """Data for the port (port of vicasplat_tpu/data/): the synthetic scene
-generator, in numpy."""
+generator and dataset, the view samplers, and the per-stage loaders."""

@@ -1,32 +1,47 @@
 """Synthetic scenes with exact ground-truth poses (port of
-vicasplat_tpu/data/synthetic_scenes.py:25-148): clustered anisotropic
-Gaussians in front of a backdrop plane that spans the frustum, and smooth
-camera trajectories, made with numpy from a seed. The same seed gives the
-same arrays, bit for bit, as the JAX package's generator.
+vicasplat_tpu/data/synthetic_scenes.py): clustered anisotropic Gaussians in
+front of a backdrop plane that spans the frustum, and smooth camera
+trajectories, made with numpy from a seed (the same seed gives the same
+arrays, bit for bit, as the JAX package's generator); golden frames
+rendered by the port's rasterizer (`render_scene_frames`); and the
+stage-split dataset of the `synthetic` experiment (`DatasetSyntheticScenes`),
+whose examples follow the RE10K loader's contract: frame-0-relative
+cameras scaled to a context baseline of 1, and near and far divided by the
+same scale.
 
-The JAX package renders its golden frames from these with its own
-rasterizer (`render_scene_frames`), which is not ported here. A scene at
-the flagship's size (`SyntheticScenesConfig(input_image_shape=(256, 256),
-n_gaussians=524288)`) covers every pixel of its views, which is what K2 and
-K4 are timed on (chip_smoke.py, phases k2 and k4).
+A scene at the flagship's size (`SyntheticScenesConfig(input_image_shape=
+(256, 256), n_gaussians=524288)`) covers every pixel of its views, which is
+what K2 and K4 are timed on (chip_smoke.py, phases k2 and k4).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
 class SyntheticScenesConfig:
-    """The generator's settings that these functions read, with the JAX
-    package's defaults (its config's dataset fields are not carried)."""
+    name: str = "synthetic"
+    n_scenes: int = 64            # train split size
+    n_val_scenes: int = 4
+    n_test_scenes: int = 8        # held out: never seen in training
     n_frames: int = 8             # frames rendered per scene
     input_image_shape: tuple = (64, 64)
     n_gaussians: int = 3072
     n_clusters: int = 24
     fov_deg: float = 60.0
+    near: float = 0.05
+    far: float = 100.0
     seed: int = 0
+    # epochs over the scene list per __iter__ pass (train only)
+    repeats: int = 1_000_000
+    overfit_to_scene: Optional[str] = None
+    cameras_are_circular: bool = False
+    # x-reflection augmentation at train time (data/shims.py)
+    augment: bool = False
     # spatial-frequency multiplier of the backdrop's colour waves and height
     # ripple; 1.0 is the generator's default
     texture_detail: float = 1.0
@@ -126,3 +141,113 @@ def scene_rng(scene_id: int, cfg: SyntheticScenesConfig) -> np.random.Generator:
     `generate_scene` seeds it: draw `scene_gaussians`, then
     `scene_trajectory`, from it in that order."""
     return np.random.default_rng(cfg.seed * 1_000_003 + scene_id)
+
+
+def render_scene_frames(gauss: dict, poses: np.ndarray, K: np.ndarray,
+                        image_shape: tuple, device="cpu") -> np.ndarray:
+    """Golden frames (T, H, W, 3) in [0, 1] from the port's rasterizer on
+    `device` (JAX `render_scene_frames`, `:151-185`: max_per_tile 256, a
+    black background, SH degree 0, colour clipped to [0, 1])."""
+    from ..ops.rasterize import RasterizeConfig, render
+    from ..ops.rasterize.projection import cov6_from_scale_rot
+
+    g = {k: torch.from_numpy(v).to(device) for k, v in gauss.items()}
+    T = poses.shape[0]
+    with torch.no_grad():
+        color, _, _ = render(
+            g["means"], cov6_from_scale_rot(g["scales"], g["rotations"]),
+            g["harmonics"], g["opacities"], torch.from_numpy(poses).to(device),
+            torch.from_numpy(K).to(device).expand(T, 3, 3), tuple(image_shape),
+            torch.zeros(3, device=device), 0, cfg=RasterizeConfig(max_per_tile=256))
+    return color.clamp(0.0, 1.0).cpu().numpy()
+
+
+def generate_scene(scene_id: int, cfg: SyntheticScenesConfig, device="cpu") -> dict:
+    """Deterministic per-id scene: Gaussians, ground-truth cameras and
+    frames rendered on `device`. The same id gives the same geometry and
+    cameras, bit for bit, as the JAX package's."""
+    rng = scene_rng(scene_id, cfg)
+    gauss = scene_gaussians(rng, cfg)
+    poses = scene_trajectory(rng, cfg)
+    K = intrinsics_for(cfg)
+    images = render_scene_frames(gauss, poses, K, cfg.input_image_shape, device)
+    return {"gaussians": gauss, "extrinsics": poses, "intrinsics": K,
+            "images": images, "scene": f"synthetic_{scene_id:05d}"}
+
+
+class DatasetSyntheticScenes:
+    """Stage-split procedural scenes (JAX `:200-276`). Scene ids: train
+    [0, n_scenes), val [n_scenes, +n_val), test [n_scenes + n_val, +n_test);
+    test scenes are never iterated in training. Frames render on `device`."""
+
+    def __init__(self, cfg: SyntheticScenesConfig, stage: str, view_sampler,
+                 seed: int = 0, device="cpu"):
+        self.cfg = cfg
+        self.stage = stage
+        self.view_sampler = view_sampler
+        self.device = device
+        self.rng = np.random.default_rng(seed + 17)
+        if stage == "train":
+            self.ids = list(range(cfg.n_scenes))
+        elif stage == "val":
+            self.ids = list(range(cfg.n_scenes, cfg.n_scenes + cfg.n_val_scenes))
+        else:
+            s0 = cfg.n_scenes + cfg.n_val_scenes
+            self.ids = list(range(s0, s0 + cfg.n_test_scenes))
+        self._cache: dict = {}
+
+    def _scene(self, sid: int) -> dict:
+        if sid not in self._cache:
+            self._cache[sid] = generate_scene(sid, self.cfg, self.device)
+        return self._cache[sid]
+
+    def _example(self, sid: int) -> Optional[dict]:
+        from .view_samplers import NotEnoughFramesError
+
+        sc = self._scene(sid)
+        T = sc["images"].shape[0]
+        try:
+            ctx_idx, tgt_idx, _ = self.view_sampler.sample(sc["scene"], T, self.rng)
+        except NotEnoughFramesError:
+            return None
+        extrinsics = sc["extrinsics"]
+        # baseline-1 and frame-0-relative normalization (the training-time
+        # camera convention of the RE10K loader)
+        a, b = extrinsics[ctx_idx[0], :3, 3], extrinsics[ctx_idx[-1], :3, 3]
+        scale = float(np.linalg.norm(a - b))
+        if scale < 1e-6:
+            return None
+        extrinsics = extrinsics.copy()
+        extrinsics[:, :3, 3] /= scale
+        rel = np.linalg.inv(extrinsics[ctx_idx[0]])[None] @ extrinsics
+        K = sc["intrinsics"]
+
+        def views(idx):
+            idx = np.asarray(idx)
+            return {
+                "extrinsics": rel[idx].astype(np.float32),
+                "intrinsics": np.broadcast_to(K, (len(idx), 3, 3)).astype(np.float32),
+                "image": sc["images"][idx].astype(np.float32),
+                "near": np.full(len(idx), self.cfg.near / scale, np.float32),
+                "far": np.full(len(idx), self.cfg.far / scale, np.float32),
+                "index": idx.astype(np.int64),
+            }
+
+        example = {"context": views(ctx_idx), "target": views(tgt_idx),
+                   "scene": sc["scene"]}
+        if self.cfg.augment and self.stage == "train":
+            from .shims import apply_augmentation_shim
+
+            example = apply_augmentation_shim(example, self.rng)
+        return example
+
+    def __iter__(self) -> Iterator[dict]:
+        reps = self.cfg.repeats if self.stage == "train" else 1
+        for _ in range(reps):
+            ids = list(self.ids)
+            if self.stage == "train":
+                self.rng.shuffle(ids)
+            for sid in ids:
+                ex = self._example(sid)
+                if ex is not None:
+                    yield ex

@@ -8,7 +8,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models.adapter import Gaussians
+from ..geometry.se3 import rigid_inverse
 from ..ops.rasterize import RasterizeConfig, render
+from ..ops.rasterize.render import coverage_stats
 from ..ops.rasterize.projection import cov6_from_matrix, cov6_from_scale_rot
 
 
@@ -81,6 +83,15 @@ def prune_gaussians(g: Gaussians, fraction: float) -> Gaussians:
                      scales=unpack("scales"), rotations=unpack("rotations"))
 
 
+def _cov6(g: Gaussians) -> torch.Tensor:
+    """(B, N, 6) packed covariances; scales and rotations are the source of
+    truth where the adapter filled them."""
+    if g.scales is None or g.rotations is None:
+        return cov6_from_matrix(g.covariances)
+    return torch.stack([cov6_from_scale_rot(s, r)
+                        for s, r in zip(g.scales, g.rotations)])
+
+
 def decoder_forward(
     cfg: DecoderSplattingConfig,
     gaussians: Gaussians,
@@ -110,12 +121,7 @@ def decoder_forward(
                          extrinsics[..., :3, 3:] * scale[:, None, None, None]], -1)
         extrinsics = torch.cat([top, extrinsics[..., 3:, :]], dim=-2)
         gaussians = gaussians._replace(means=gaussians.means * scale[:, None, None])
-    # scales/rotations are the source of truth where the adapter filled them
-    if gaussians.scales is None or gaussians.rotations is None:
-        cov6 = cov6_from_matrix(gaussians.covariances)
-    else:
-        cov6 = torch.stack([cov6_from_scale_rot(s, r) for s, r in
-                            zip(gaussians.scales, gaussians.rotations)])
+    cov6 = _cov6(gaussians)
     if cfg.make_scale_invariant:
         cov6 = cov6 * scale[:, None, None] ** 2
     outs = []
@@ -129,3 +135,38 @@ def decoder_forward(
             cfg=cfg.rasterize,
         ))
     return DecoderOutput(*(torch.stack(x) for x in zip(*outs)))
+
+
+# coverage shares above which the static-shape caps (dup_hw tiles a splat,
+# max_per_tile entries a tile) visibly distort a scene
+COVERAGE_TRUNCATED_WARN = 0.05
+COVERAGE_OVERFLOW_WARN = 0.05
+
+
+@torch.no_grad()
+def coverage_report(cfg: DecoderSplattingConfig, gaussians: Gaussians,
+                    extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+                    image_shape: tuple, tag: str = "") -> dict:
+    """`coverage_stats` of the first view of the first example, as floats
+    (JAX `decoder/splatting.py:200-251`), with a warning where
+    `truncated_frac` or `tile_overflow_frac` passes its threshold."""
+    if gaussians.means.ndim > 3:
+        gaussians = flatten_gaussians(gaussians)
+    sh_degree = int(round(gaussians.harmonics.shape[-1] ** 0.5)) - 1
+    cov6 = _cov6(gaussians)
+    stats = coverage_stats(
+        gaussians.means[0], cov6[0], gaussians.harmonics[0], gaussians.opacities[0],
+        rigid_inverse(extrinsics[0, 0]), intrinsics[0, 0], tuple(image_shape),
+        sh_degree, cfg=cfg.rasterize)
+    stats = {k: float(v) for k, v in stats.items()}
+    r = cfg.rasterize
+    label = f" [{tag}]" if tag else ""
+    if stats["truncated_frac"] > COVERAGE_TRUNCATED_WARN:
+        print(f"WARNING{label}: {stats['truncated_frac']:.1%} of live splats span "
+              f"more than the dup_hw={r.dup_hw} tile window and are truncated; "
+              "raise rasterize.dup_hw")
+    if stats["tile_overflow_frac"] > COVERAGE_OVERFLOW_WARN:
+        print(f"WARNING{label}: {stats['tile_overflow_frac']:.1%} of tiles hit the "
+              f"max_per_tile={r.max_per_tile} capacity; far splats are dropped; "
+              "raise rasterize.max_per_tile")
+    return stats

@@ -32,13 +32,25 @@ def _rotation_coeffs(theta: torch.Tensor):
     return A, B, C, W, W2
 
 
+def so3_exp(theta: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula, batched, smooth at the identity."""
+    A, B, _, W, W2 = _rotation_coeffs(theta)
+    eye = torch.eye(3, dtype=theta.dtype, device=theta.device).expand(W.shape)
+    return eye + A * W + B * W2
+
+
+def so3_left_jacobian(theta: torch.Tensor) -> torch.Tensor:
+    """V(theta) such that t = V @ rho in the SE(3) exponential."""
+    _, B, C, W, W2 = _rotation_coeffs(theta)
+    eye = torch.eye(3, dtype=theta.dtype, device=theta.device).expand(W.shape)
+    return eye + B * W + C * W2
+
+
 def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     """tau = [rho(3), theta(3)] -> 4x4 transform."""
     rho, theta = tau[..., :3], tau[..., 3:]
-    A, B, C, W, W2 = _rotation_coeffs(theta)
-    eye = torch.eye(3, dtype=tau.dtype, device=tau.device).expand(W.shape)
-    R = eye + A * W + B * W2
-    t = ((eye + B * W + C * W2) @ rho[..., None])[..., 0]
+    R = so3_exp(theta)
+    t = (so3_left_jacobian(theta) @ rho[..., None])[..., 0]
     top = torch.cat([R, t[..., None]], dim=-1)
     bottom = torch.zeros_like(top[..., :1, :])
     bottom[..., 0, 3] = 1.0
@@ -53,6 +65,14 @@ def rigid_inverse(m: torch.Tensor) -> torch.Tensor:
     bottom = torch.zeros_like(top[..., :1, :])
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def update_pose(cam_trans_delta: torch.Tensor, cam_rot_delta: torch.Tensor,
+                extrinsics: torch.Tensor) -> torch.Tensor:
+    """The left SE(3) retraction of the w2c matrix by [trans, rot] deltas;
+    takes and returns c2w, batched."""
+    tau = torch.cat([cam_trans_delta, cam_rot_delta], dim=-1)
+    return rigid_inverse(se3_exp(tau) @ rigid_inverse(extrinsics))
 
 
 def camera_matrix_from_dq_array(dq_array: torch.Tensor,

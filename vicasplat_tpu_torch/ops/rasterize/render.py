@@ -72,6 +72,32 @@ def render_view(means, cov6, harmonics, opacities, viewmat, intrinsics,
                            chunk=cfg.chunk, tile_group=cfg.tile_group)
 
 
+def coverage_stats(means, cov6, harmonics, opacities, viewmat, intrinsics,
+                   image_shape: tuple, sh_degree: int,
+                   cfg: RasterizeConfig = RasterizeConfig()) -> dict:
+    """The static-shape caps' effect on one view (JAX `render.py:111-151`):
+    the share of live splats whose 3-sigma rect spans more tiles than the
+    `dup_hw` window (`truncated_frac`: raise dup_hw), and the share of
+    tiles whose list fills `max_per_tile` (`tile_overflow_frac`: raise
+    max_per_tile), with `live_frac` and `tile_occupancy_mean`."""
+    splats = project_gaussians(means, cov6, harmonics, opacities, viewmat,
+                               intrinsics, image_shape, sh_degree)
+    KH, KW = cfg.dup_hw
+    live = splats.radius > 0
+    tiles_w = 2.0 * splats.radius / cfg.tile_px + 1.0  # most tiles spanned
+    truncated = live & ((tiles_w > KW) | (tiles_w > KH))
+    payload = bin_splats(splats, image_shape, cfg.tile_px, cfg.dup_hw,
+                         cfg.max_per_tile)
+    occupancy = (payload[..., 5] > 0).sum(dim=1)
+    n_live = live.sum().clamp(min=1)
+    return {
+        "live_frac": live.float().mean(),
+        "truncated_frac": truncated.sum() / n_live,
+        "tile_occupancy_mean": occupancy.float().mean(),
+        "tile_overflow_frac": (occupancy >= cfg.max_per_tile).float().mean(),
+    }
+
+
 def render(
     means: torch.Tensor,        # (N, 3)
     cov6: torch.Tensor,         # (N, 6) packed world covariance
