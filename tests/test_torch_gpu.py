@@ -640,3 +640,44 @@ def test_one_scene_through_eval_accel(cuda, tmp_path):
     for k, tol in ACCEL_TOL.items():
         assert abs(got[k] - ref[k]) <= tol, (k, got[k], ref[k])
     assert (tmp_path / "a" / "synthetic_04100" / "compare.png").exists()
+
+
+def test_train_loader_threads_on_card(cuda):
+    """The train loader's producer thread renders its scenes on the card
+    while this thread keeps the card busy: the batches equal the CPU
+    loader's (scene ids and view indices exactly; frames within the
+    rasterizer's card-to-CPU tolerance, 1e-4, but for rare pixels on the
+    1/255 alpha cut, at most 2/255), land on the card, and close() leaves
+    no thread behind."""
+    import threading
+
+    from vicasplat_tpu_torch.data.data_module import DataModule
+
+    ds = {"synthetic": dict(name="synthetic", n_scenes=6, n_frames=8,
+                            input_image_shape=[32, 32], n_gaussians=512,
+                            view_sampler=dict(name="sequential", num_context_views=3,
+                                              num_target_views=2,
+                                              min_distance_between_context_views=1,
+                                              max_distance_between_context_views=2))}
+    loaders = {"train": {"batch_size": 2, "seed": 7, "prefetch": 2}}
+    threads = set(threading.enumerate())
+    gpu = DataModule(ds, loaders, device="cuda").train_dataloader()
+    cpu = DataModule(ds, loaders, device="cpu").train_dataloader()
+    x = torch.randn(2048, 2048, device="cuda")
+    try:
+        for _ in range(3):
+            for _ in range(20):  # work queued on this thread's stream
+                x = torch.tanh(x @ x / 2048)
+            b, c = next(gpu), next(cpu)
+            assert b["scene"] == c["scene"]
+            for side in ("context", "target"):
+                assert torch.equal(b[side]["index"].cpu(), c[side]["index"])
+                img = b[side]["image"]
+                assert img.device.type == "cuda"
+                diff = (img.cpu() - c[side]["image"]).abs()
+                assert diff.max() <= 2 / 255 and (diff > 1e-4).float().mean() <= 1e-3
+    finally:
+        gpu.close()
+        cpu.close()
+    assert torch.isfinite(x).all()
+    assert not [t for t in set(threading.enumerate()) - threads if t.is_alive()]

@@ -13,8 +13,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "vicasplat_tpu_torch"
 ALLOWED = {"torch", "numpy", "vicasplat_tpu_torch"}
 # may be imported inside a function, never at the top: Triton where a kernel
-# launches, OpenCV where save_video is asked for an mp4
-LAZY_ONLY = {"triton", "cv2"}
+# launches, OpenCV where save_video is asked for an mp4, wandb where a logger
+# is asked for it
+LAZY_ONLY = {"triton", "cv2", "wandb"}
 
 
 def _port_files():
@@ -50,7 +51,11 @@ def test_port_files_exist():
     for mod in ("main", "eval_pose", "evaluation/nvs_eval", "evaluation/pose_evaluator",
                 "evaluation/metrics", "loss/ssim", "data/data_module",
                 "data/view_samplers", "utils/config", "utils/yaml_subset",
-                "utils/checkpointing", "utils/benchmarker", "utils/image_io"):
+                "utils/checkpointing", "utils/benchmarker", "utils/image_io",
+                # the train mode's
+                "utils/step_tracker", "utils/loggers", "loss/lpips",
+                "visualization/layout", "visualization/colormaps",
+                "visualization/bitmap_font"):
         assert f"vicasplat_tpu_torch/{mod}.py" in names, mod
 
 

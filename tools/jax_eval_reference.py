@@ -15,9 +15,17 @@ fractions, and the pose evaluator's summary, to
 `vicasplat_tpu_torch/evaluation/reference_synthetic_pose_96k.json`, which
 `chip_smoke.py` holds the port's test mode against.
 
+With `--binning origin` it runs the test mode only, with
+`decoder.rasterize.binning=origin` (JAX's origin binning sorts on the CPU
+too, `ops/rasterize/tiles.py:440-441`), and stores its per-scene and mean
+scores under the key "origin" of the same JSON, beside the default ones;
+`chip_smoke.py` holds `eval-accel` (the port's origin binning through K2
+and K4) to them scene by scene.
+
 Usage, from the repository root, on the CPU:
-    env JAX_PLATFORMS=cpu JAX_COMPILATION_CACHE_DIR=/tmp/jax_cache \
-        python tools/jax_eval_reference.py [--out-dir build/jax_eval_reference]
+    env JAX_PLATFORMS=cpu JAX_COMPILATION_CACHE_DIR=build/jax_cache \
+        python tools/jax_eval_reference.py [--out-dir build/jax_eval_reference] \
+        [--binning origin]
 """
 from __future__ import annotations
 
@@ -62,7 +70,10 @@ def main(argv=None):
     ap.add_argument("--out-dir", default="build/jax_eval_reference",
                     help="test.output_path of the run (images, scores)")
     ap.add_argument("--json", default=str(JSON_OUT))
+    ap.add_argument("--binning", default="dup_sort", choices=("dup_sort", "origin"))
     args = ap.parse_args(argv)
+    origin = args.binning == "origin"
+    extra = ["decoder.rasterize.binning=origin"] if origin else []
 
     import jax
 
@@ -74,9 +85,9 @@ def main(argv=None):
     from vicasplat_tpu.utils.config import load_config
 
     t_start = time.perf_counter()
-    out_dir = str(ROOT / args.out_dir)
+    out_dir = str(ROOT / args.out_dir) + ("_origin" if origin else "")
     cfg = load_config(ROOT / "configs/main.yaml", experiment="synthetic_pose",
-                      overrides=[*OVERRIDES, f"checkpointing.load={NPZ}",
+                      overrides=[*OVERRIDES, *extra, f"checkpointing.load={NPZ}",
                                  f"test.output_path={out_dir}"])
     np.random.seed(cfg.seed)
     template = init_vicasplat(jax.random.PRNGKey(cfg.seed), cfg.encoder)
@@ -97,6 +108,17 @@ def main(argv=None):
         jmain.test(cfg)
     test_s = time.perf_counter() - t0
     summary = json.loads((pathlib.Path(out_dir) / "scores_all_avg.json").read_text())
+    if origin:
+        record = json.loads(pathlib.Path(args.json).read_text())
+        record["origin"] = {
+            "command": "env JAX_PLATFORMS=cpu python tools/jax_eval_reference.py "
+                       "--binning origin",
+            "overrides": [*OVERRIDES, *extra, f"checkpointing.load={NPZ}"],
+            "scenes": scenes, "mean": summary, "seconds": {"test": test_s}}
+        pathlib.Path(args.json).write_text(json.dumps(record, indent=1) + "\n")
+        print(json.dumps(summary), flush=True)
+        print(f"test {test_s:.1f} s -> {args.json} (origin)", flush=True)
+        return
 
     t0 = time.perf_counter()
     evaluator = PoseEvaluator(params, cfg.encoder, cfg.decoder,

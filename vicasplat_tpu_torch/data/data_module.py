@@ -1,17 +1,28 @@
 """Batching and per-stage loaders (port of vicasplat_tpu/data/data_module.py:
-24-299): `collate`, `_build_dataset` and `DataModule` with its strict loader
-schema. Datasets yield numpy examples; a loader collates them and puts each
-batch on the card through pinned memory and non-blocking copies
-(`to_device`).
+24-299): `collate`, `PrefetchIterator`, `_build_dataset` and `DataModule`
+with its strict loader schema. Datasets yield numpy examples; a loader
+collates them and puts each batch on the card through pinned memory and
+non-blocking copies (`to_device`).
+
+The train loader collates on a background thread (`PrefetchIterator`) and
+copies each batch to the device on the consuming thread, in `__next__`: the
+copy is queued on that thread's current stream, so it is ordered before the
+step that uses it with no event. The synthetic dataset renders a scene's
+frames on the device from the producer thread; that render runs on the
+device's default stream, as the train loop does, and comes back to the host
+(a synchronizing copy) before it is collated, so no device tensor crosses
+threads. Its rasterizer is the default matmul path, which launches none of
+the port's kernels: the kernels' launch counts stay the train loop's own.
 
 Ported datasets: `synthetic` (data/synthetic_scenes.py). The chunk readers
-(RE10K, ACID, DL3DV, ScanNet++, MVImgNet, ScanNet) and the train loader's
-threaded prefetch are not ported yet (ROADMAP.md §1 item 5): naming them
-raises.
+(RE10K, ACID, DL3DV, ScanNet++, MVImgNet, ScanNet) are not ported yet
+(ROADMAP.md §1 item 5): naming them raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -26,7 +37,7 @@ class DataLoaderConfig:
     batch_size: int = 2
     seed: int = 1234
     prefetch: int = 2
-    num_workers: int = 0
+    num_workers: int = 0  # JAX shards a chunk reader over it; none is ported
 
 
 def collate(examples: list) -> dict:
@@ -56,6 +67,75 @@ def to_device(batch, device):
     return t.to(device)
 
 
+class PrefetchIterator:
+    """Collates batches from an example iterator on a background thread
+    (JAX `data_module.py:49-189`, its one-iterator path: the JAX loader takes
+    several producers and a collator thread only for a sharded reader with
+    `num_workers > 0`, and no ported dataset is sharded). `transfer`, if
+    given, maps each collated batch on the consuming thread (the train
+    loader puts it on the device there)."""
+
+    def __init__(self, example_iter, batch_size: int, prefetch: int = 2,
+                 drop_last: bool = True, transfer=None):
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.transfer = transfer
+        self._stop = threading.Event()
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._thread = threading.Thread(target=self._worker, args=(example_iter,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """put() that gives up once the consumer has closed the iterator."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self, it):
+        batch = []
+        try:
+            for ex in it:
+                if self._stop.is_set():
+                    return
+                batch.append(ex)
+                if len(batch) == self.batch_size:
+                    if not self._put(collate(batch)):
+                        return
+                    batch = []
+            if batch and not self.drop_last:
+                self._put(collate(batch))
+        except Exception as e:  # raised again on the consuming thread
+            self._put(e)
+        self._put(None)
+
+    def close(self):
+        """Stop the thread (safe after a partial iteration) and wait for it;
+        a thread still inside one example's work finishes it first."""
+        self._stop.set()
+        try:
+            while True:  # so that a thread blocked in put() sees the flag
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is None:
+            raise StopIteration
+        if isinstance(item, Exception):
+            raise item
+        return item if self.transfer is None else self.transfer(item)
+
+
 DATASETS = {"synthetic": (DatasetSyntheticScenes, SyntheticScenesConfig)}
 NOT_PORTED = ("re10k", "acid", "dl3dv", "scannetpp", "mvimgnet", "scannet",
               "scannet_pose")
@@ -83,14 +163,15 @@ def _build_dataset(ds_dict: dict, stage: str, step_tracker, seed: int, device="c
 class DataModule:
     """Per-stage loaders from the config's dataset dict (one or more named
     datasets, taken in turns). Scenes render, and batches land, on
-    `device`."""
+    `device`. Each dataset's seed is its loader's plus `global_rank`."""
 
     def __init__(self, dataset_cfgs: dict, data_loader_cfg: dict,
-                 step_tracker=None, device="cuda"):
+                 step_tracker=None, device="cuda", global_rank: int = 0):
         self.dataset_cfgs = dataset_cfgs
         self.loader_cfg = data_loader_cfg or {}
         self.step_tracker = step_tracker
         self.device = device
+        self.global_rank = global_rank
 
     def _loader_params(self, stage: str, ds_name: str) -> DataLoaderConfig:
         section = self.loader_cfg.get(stage, {})
@@ -106,22 +187,42 @@ class DataModule:
                 f"{sorted(fields)} or per-dataset overrides {sorted(self.dataset_cfgs)}")
         return DataLoaderConfig(**{k: v for k, v in section.items() if k in fields})
 
-    def loader(self, stage: str) -> Iterator[dict]:
-        """Batches of `batch_size` examples on the device, the datasets
-        taken in turns; the last short batch is kept (val and test)."""
-        if stage == "train":
-            raise NotImplementedError(
-                "the train loader (threaded prefetch) waits for main.py's train "
-                "mode (ROADMAP.md §1 item 1)")
-        lp = self._loader_params(stage, next(iter(self.dataset_cfgs), ""))
+    def train_batch_size(self) -> int:
+        """The train loader's batch size, from the typed loader config."""
+        return self._loader_params("train", next(iter(self.dataset_cfgs), "")).batch_size
+
+    def _iters(self, stage: str) -> list:
         iters = []
         for name, ds_dict in self.dataset_cfgs.items():
-            seed = self._loader_params(stage, name).seed
+            seed = self._loader_params(stage, name).seed + self.global_rank
             iters.append(iter(_build_dataset(
                 dict(ds_dict, name=ds_dict.get("name", name)), stage,
                 self.step_tracker, seed, self.device)))
+        return iters
 
-        return self._batches(iters, lp.batch_size)
+    def loader(self, stage: str) -> Iterator[dict]:
+        """Batches of `batch_size` examples on the device, the datasets
+        taken in turns. Train: collated ahead on a background thread
+        (`PrefetchIterator`, `prefetch` batches), the last short batch
+        dropped; call `close()` when leaving it early. Val and test: made
+        on the calling thread, the last short batch kept."""
+        lp = self._loader_params(stage, next(iter(self.dataset_cfgs), ""))
+        iters = self._iters(stage)
+        if stage != "train":
+            return self._batches(iters, lp.batch_size)
+
+        def round_robin():
+            live = list(iters)
+            while live:
+                for it in list(live):
+                    try:
+                        yield next(it)
+                    except StopIteration:
+                        live.remove(it)
+
+        return PrefetchIterator(round_robin(), batch_size=lp.batch_size,
+                                prefetch=lp.prefetch, drop_last=True,
+                                transfer=lambda b: to_device(b, self.device))
 
     def _batches(self, iters: list, batch_size: int) -> Iterator[dict]:
         live, batch = list(iters), []
@@ -137,6 +238,18 @@ class DataModule:
                     batch = []
         if batch:
             yield to_device(collate(batch), self.device)
+
+    def train_dataloader(self) -> PrefetchIterator:
+        return self.loader("train")
+
+    def val_dataloader(self, num_examples: int = 1) -> Iterator[dict]:
+        """The first `num_examples` batches of the val split (the
+        reference's ValidationWrapper)."""
+        loader = self.loader("val")
+        for i, batch in enumerate(loader):
+            if i >= num_examples:
+                break
+            yield batch
 
     def test_dataloader(self):
         return self.loader("test")

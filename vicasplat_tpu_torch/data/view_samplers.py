@@ -6,7 +6,7 @@ which every configuration of the synthetic dataset names. `bounded` and
 are not ported yet (ROADMAP.md §1 item 5), and come with them. Host numpy
 with an explicit np.random.Generator; a copy of the JAX package's, which
 imports no JAX. The step tracker is any object with `get_step()` (the train
-loop's, which waits for the train-mode slice), or None.
+loop's StepTracker, utils/step_tracker.py), or None.
 """
 from __future__ import annotations
 

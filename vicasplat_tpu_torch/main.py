@@ -1,36 +1,253 @@
-"""Test-mode CLI (port of vicasplat_tpu/main.py:364-505):
+"""Train and test CLI (port of vicasplat_tpu/main.py):
 
+    python -m vicasplat_tpu_torch.main +experiment=synthetic_pose mode=train \
+        checkpointing.load=outputs/synthetic_pose/ckpt_committed/weights_latest.npz
     python -m vicasplat_tpu_torch.main +experiment=synthetic_pose mode=test \
         checkpointing.load=outputs/synthetic_pose/ckpt_committed/weights_latest.npz \
         dataset.synthetic.n_scenes=4096 test.output_path=<dir>
 
-Per scene of the test split: encode the context (bf16 over float32
-weights), align the target poses, render and score them
-(evaluation/nvs_eval.py), and save its outputs; then write
+Train (`train`, JAX `:61-293`): the train loader's batches through the train
+step (bf16 compute over float32 parameters, AdamW), a log line and the
+logger's scalars every `train.print_log_every_n_steps`, a checkpoint every
+`checkpointing.every_n_train_steps` (weights only, or with
+`save_weights_only: false` the full state), validation visuals every
+`trainer.val_check_interval`, and a resume from the newest checkpoint with
+`checkpointing.resume=true`. Distillation is not ported
+(`train.distiller` raises).
+
+Test (`test`, JAX `:364-505`): per scene of the test split, encode the
+context (bf16 over float32 weights), align the target poses, render and
+score them (evaluation/nvs_eval.py), and save its outputs; then write
 `scores_all_avg.json` (each score's nanmean, with `n_scenes` and each
 score's `n_valid`), `benchmark.json` (seconds of the sections `encoder`,
 `pose_align` and `decoder`) and `peak_memory.json` under
-`test.output_path`. It runs on the card unless the caller passes
-`device="cpu"`. `mode=train` waits for the next slice.
+`test.output_path`.
+
+Both run on the card unless the caller passes `device="cpu"`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import sys
+import time
 
 import numpy as np
 import torch
 
 
-def _maybe_lpips(cfg):
-    """LPIPS needs VGG weights that the repository does not hold, and its
-    graph is not ported (ROADMAP.md §1 item 1): the test mode runs
-    without it, as the JAX package's does without the weights."""
-    if cfg.loss.lpips is not None:
-        print("lpips unavailable (no VGG weights, graph not ported); continuing "
-              "without perceptual loss")
+def build_all(cfg, device="cuda"):
+    """(TrainConfig, model, AdamW) from the root config, as the JAX
+    package's `build_all`: the optimizer's schedule length and clip come
+    from `trainer`, the model's weights from the seed or from
+    `checkpointing.load`."""
+    from .models import init_vicasplat
+    from .training import AdamW, TrainConfig
+    from .utils.checkpointing import load_weights
+
+    opt_cfg = dataclasses.replace(
+        cfg.optimizer,
+        cosine_annealing=cfg.train.lr_cosine_annealing or cfg.optimizer.cosine_annealing,
+        max_steps=(cfg.trainer.max_steps if cfg.trainer.max_steps > 0
+                   else cfg.optimizer.max_steps),
+        gradient_clip_val=cfg.trainer.gradient_clip_val,
+        new_param_keywords=tuple(cfg.train.new_param_keywords))
+    train_cfg = TrainConfig(
+        model=cfg.encoder, decoder=cfg.decoder, optimizer=opt_cfg,
+        dtype="bfloat16" if cfg.trainer.precision == "bfloat16" else "float32",
+        remat=cfg.train.gradient_checkpointing, remat_policy=cfg.train.remat_policy,
+        distill_weight=cfg.train.distill_weight,
+        distill_only_steps=cfg.train.distill_only_steps,
+        distill_max_steps=cfg.train.distill_max_steps,
+        accumulate_steps=cfg.train.accumulate_grad_batches)
+    if cfg.loss.camera is None:
+        raise NotImplementedError("a training config without loss.camera: the port's "
+                                  "step always takes the camera loss")
+    for name in ("mse", "camera", "lpips"):
+        if getattr(cfg.loss, name) is not None:
+            train_cfg = dataclasses.replace(train_cfg, **{name: getattr(cfg.loss, name)})
+    model = init_vicasplat(cfg.encoder, torch.Generator(device).manual_seed(cfg.seed),
+                           device)
+    if cfg.checkpointing.load:
+        print(f"loading weights from {cfg.checkpointing.load}")
+        load_weights(cfg.checkpointing.load, model)
+    return train_cfg, model, AdamW(model, opt_cfg)
+
+
+def _maybe_lpips(cfg, device="cuda"):
+    """The LPIPS function when the experiment asks for it and its weights
+    are in the repository, else None (JAX `main.py:345-352`); its VGG
+    weights are not in the repository."""
+    if cfg.loss.lpips is None:
+        return None
+    from .loss.lpips import make_lpips_fn
+
+    try:
+        return make_lpips_fn(device=device)
+    except FileNotFoundError as e:
+        print(f"lpips unavailable ({e}); continuing without perceptual loss")
+        return None
+
+
+def _maybe_distiller(cfg):
+    """The frozen teacher of the distillation stage: not ported."""
+    if cfg.train.distiller:
+        raise NotImplementedError(
+            f"train.distiller={cfg.train.distiller!r}: distillation (the DUSt3R "
+            "teacher, Regr3D and the distill forward) is not ported yet "
+            "(ROADMAP.md §1 item 5b); run with train.distiller=''")
     return None
+
+
+def train(cfg, device="cuda"):
+    """The train loop (JAX `main.train`); returns {"model", "optimizer",
+    "step", "logs": [each logged step's scalars]}."""
+    from .data.data_module import DataModule
+    from .training import make_train_step
+    from .training.optimizer import make_schedule
+    from .training.step import pick_phase
+    from .utils.checkpointing import CheckpointManager, restore_train_state
+    from .utils.loggers import make_logger
+    from .utils.step_tracker import StepTracker
+
+    teacher_fn = _maybe_distiller(cfg)  # raises before anything is built
+    train_cfg, model, optimizer = build_all(cfg, device)
+    step_tracker = StepTracker()
+    dm = DataModule(cfg.dataset, cfg.data_loader, step_tracker, device=device)
+    ckpt = CheckpointManager(cfg.checkpointing.output_dir,
+                             every_n_steps=cfg.checkpointing.every_n_train_steps,
+                             keep=cfg.checkpointing.save_top_k,
+                             async_save=cfg.checkpointing.async_save)
+    start_step = 0
+    if cfg.checkpointing.resume:
+        latest = ckpt.latest()
+        if latest is not None:
+            start_step = restore_train_state(latest, model, optimizer)
+            print(f"resumed full train state from {latest} at step {start_step}")
+    lpips_fn = _maybe_lpips(cfg, device)
+    step_fn = make_train_step(train_cfg, model, optimizer, lpips_fn=lpips_fn)
+    writer = make_logger(cfg)
+
+    def save_ckpt(step):
+        ckpt.save(step, model,
+                  None if cfg.checkpointing.save_weights_only else optimizer)
+
+    every = cfg.train.print_log_every_n_steps
+    max_steps = cfg.trainer.max_steps if cfg.trainer.max_steps > 0 else 10**9
+    global_step = start_step
+    step_tracker.set_step(global_step)
+    logged, prof = [], None
+    t_last = time.perf_counter()
+    while global_step < max_steps:
+        loader = dm.train_dataloader()
+        try:
+            for batch in loader:
+                batch = {k: v for k, v in batch.items() if k != "scene"}
+                phase = pick_phase(train_cfg, global_step, teacher_fn is not None)
+                if (cfg.trainer.profile_dir and prof is None
+                        and global_step == cfg.trainer.profile_start):
+                    prof = _start_profiler(device)
+                logs = step_fn(batch, global_step, phase=phase)
+                global_step += 1
+                step_tracker.set_step(global_step)
+                if (prof is not None and global_step
+                        == cfg.trainer.profile_start + cfg.trainer.profile_steps):
+                    _stop_profiler(prof, device, cfg.trainer.profile_dir,
+                                   cfg.trainer.profile_steps)
+                if global_step % every == 0:
+                    logs = {k: float(v) for k, v in logs.items()}
+                    dt, t_last = time.perf_counter() - t_last, time.perf_counter()
+                    print(f"step {global_step} | loss {logs['loss']:.4f} | psnr "
+                          f"{logs['psnr']:.2f} | {every / dt:.2f} it/s", flush=True)
+                    logged.append(dict(logs, step=global_step))
+                    if writer is not None:
+                        for k, v in logs.items():
+                            writer.add_scalar(f"train/{k}", v, global_step)
+                        # the JAX loop logs its base config's schedule
+                        writer.add_scalar("train/lr",
+                                          make_schedule(cfg.optimizer)(global_step),
+                                          global_step)
+                if ckpt.should_save(global_step):
+                    save_ckpt(global_step)
+                if (cfg.trainer.val_check_interval > 0
+                        and global_step % cfg.trainer.val_check_interval == 0):
+                    _validation_visuals(cfg, model, dm, global_step, writer,
+                                        train_cfg.dtype)
+                if global_step >= max_steps:
+                    break
+        finally:
+            # stop the prefetch threads a max_steps break leaves mid-epoch
+            loader.close()
+    save_ckpt(global_step)
+    ckpt.finalize()
+    if writer is not None:
+        writer.close()
+    print("training done")
+    return {"model": model, "optimizer": optimizer, "step": global_step,
+            "logs": logged}
+
+
+def _start_profiler(device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, device, out_dir, steps):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    out = pathlib.Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "trace.json"))
+    print(f"profiler trace ({steps} steps) -> {out / 'trace.json'}")
+
+
+@torch.no_grad()
+def _validation_visuals(cfg, model, dm, global_step, writer, dtype="bfloat16"):
+    """One val example through the forward and the render, and its
+    comparison grid (context / target / rendered / depth) saved as
+    `<output_dir>/val/step_<7 digits>/comparison.png` and logged (JAX
+    `main.py:216-293`). Returns the grid, or None without a val split."""
+    from .decoder.splatting import decoder_forward
+    from .models import vicasplat_forward
+    from .utils.image_io import save_image, vis_depth_map
+    from .visualization.layout import add_label, hcat, vcat
+
+    batch = next(iter(dm.val_dataloader()), None)
+    if batch is None:
+        return None
+    ctx, tgt = batch["context"], batch["target"]
+    h, w = tgt["image"].shape[-3:-1]
+    out = vicasplat_forward(model, dict(ctx, image=ctx["image"] * 2 - 1), global_step,
+                            dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    rendered = decoder_forward(cfg.decoder, out["gaussians"], tgt["extrinsics"],
+                               tgt["intrinsics"], tgt["near"], tgt["far"], (h, w))
+    outdir = pathlib.Path(cfg.output_dir) / "val" / f"step_{global_step:07d}"
+
+    def host(x):
+        return x.float().cpu().numpy()
+
+    n, nc = min(4, tgt["image"].shape[1]), min(4, ctx["image"].shape[1])
+    grid = vcat(
+        add_label(hcat(*[host(ctx["image"][0, i]) for i in range(nc)]), "context"),
+        add_label(hcat(*[host(tgt["image"][0, i]) for i in range(n)]), "target (GT)"),
+        add_label(hcat(*[host(rendered.color[0, i]) for i in range(n)]), "rendered"),
+        add_label(hcat(*[vis_depth_map(host(rendered.depth[0, i])) for i in range(n)]),
+                  "depth"))
+    save_image(grid, outdir / "comparison.png")
+    if writer is not None:
+        writer.add_image("val/comparison", np.clip(grid, 0, 1).transpose(2, 0, 1),
+                         global_step)
+    print("val: the orthographic projections, the camera figure and the "
+          "interpolation video are not ported yet (ROADMAP.md §1 items 3 and 7)")
+    return grid
 
 
 def _nan_summary(scored, key):
@@ -45,16 +262,17 @@ def build_model(cfg, device):
     """The model of `cfg.encoder` with float32 weights from the seed, or
     from `checkpointing.load`, in eval mode on `device`."""
     from .models import init_vicasplat
-    from .utils.checkpointing import load_weights
+    from .utils.checkpointing import load_ema, load_weights
 
     model = init_vicasplat(cfg.encoder, torch.Generator(device).manual_seed(cfg.seed),
                            device)
     if cfg.checkpointing.load:
-        if cfg.test.use_ema:
-            print("WARNING: test.use_ema=true but the checkpoint has no EMA state "
-                  "(a weights-only snapshot); using raw weights")
         print(f"loading weights from {cfg.checkpointing.load}")
         load_weights(cfg.checkpointing.load, model)
+        # the EMA rides a full-state checkpoint (JAX main.py:379-396)
+        if cfg.test.use_ema and not load_ema(cfg.checkpointing.load, model):
+            print("WARNING: test.use_ema=true but the checkpoint has no EMA state "
+                  "(weights-only, or trained with ema_decay=0); using raw weights")
     return model.eval()
 
 
@@ -93,7 +311,7 @@ def test(cfg, device="cuda"):
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     h = w = cfg.encoder.backbone.img_size
-    lpips_fn = _maybe_lpips(cfg)
+    lpips_fn = _maybe_lpips(cfg, device)
     align_fn = (make_pose_align_step(cfg.encoder, cfg.decoder, eval_cfg, (h, w),
                                      loss_cfg=cfg.loss, lpips_fn=lpips_fn)
                 if eval_cfg.align_pose and eval_cfg.pose_align_steps > 0 else None)
@@ -140,9 +358,7 @@ def main(argv=None, device="cuda"):
     cfg = parse_cli(sys.argv[1:] if argv is None else argv)
     np.random.seed(cfg.seed)
     if cfg.mode == "train":
-        raise NotImplementedError(
-            "mode=train is not ported yet (ROADMAP.md §1 item 1: main.py's train "
-            "mode, with distillation and LPIPS)")
+        return train(cfg, device)
     if cfg.mode != "test":
         raise ValueError(cfg.mode)
     return test(cfg, device)

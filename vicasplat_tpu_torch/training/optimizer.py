@@ -81,8 +81,9 @@ def global_norm(tensors) -> torch.Tensor:
 
 class AdamW:
     """The optimizer over a module's parameters, updated in place from their
-    `.grad`. State: the step count, mu, nu and the optional EMA, keyed by
-    parameter name."""
+    `.grad`. State: the step count, mu, nu and the optional EMA (JAX
+    `_track_param_ema`: ema <- decay ema + (1 - decay) p of the new
+    parameters, starting from the initial ones), keyed by parameter name."""
 
     def __init__(self, model: nn.Module, cfg: OptimizerConfig):
         self.cfg = cfg
@@ -125,3 +126,9 @@ class AdamW:
             if self.ema is not None:
                 self.ema[n] = cfg.ema_decay * self.ema[n] + (1.0 - cfg.ema_decay) * p
         self.count = count
+
+
+def get_ema_params(optimizer: AdamW):
+    """{parameter name: EMA} of an optimizer built with ema_decay > 0, else
+    None (JAX `get_ema_params`)."""
+    return optimizer.ema

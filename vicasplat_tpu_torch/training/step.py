@@ -2,8 +2,9 @@
 context video -> Gaussians + poses, render the target views, sum the losses,
 AdamW update.
 
-The "full" phase is ported. The distillation phases need the frozen teacher
-(JAX `models/dust3r.py`), which is not: they raise.
+The "full" phase is ported; main.py's train mode runs it. The distillation
+phases need the frozen teacher (JAX `models/dust3r.py`), which is not
+ported yet (ROADMAP.md §1 item 5b): they raise.
 """
 from __future__ import annotations
 

@@ -1,24 +1,47 @@
-"""Loading trained weights (the counterpart of the JAX package's
-`utils/checkpointing.load_weights` dispatch, `:167-195`, for the weights
-the repository holds).
+"""Checkpoints in the port's own format (the counterpart of the JAX
+package's `utils/checkpointing.py`, which writes orbax directories; orbax
+is not a dependency of the port).
 
-The committed snapshot `outputs/synthetic_pose/ckpt_committed/
-weights_latest.npz` stores the JAX param tree as float16 leaves `arr_0`,
-`arr_1`, ... in `jax.tree_util.tree_leaves` order, beside the scalars
-`_total_steps` and `_segment` (written by tools/pose_segments.py:44-62).
-That order takes dict keys sorted at every level, and the stacked
-`enc_blocks` / `dec_blocks` as one leaf each with a leading depth axis.
-`jax_leaf_specs` rebuilds it from the port's module without JAX, through
-the weight bridge's key mapping (`weights.torch_key`).
+Every checkpoint is one npz in the layout of the committed snapshot
+`outputs/synthetic_pose/ckpt_committed/weights_latest.npz`: the JAX param
+tree's leaves `arr_0`, `arr_1`, ... in `jax.tree_util.tree_leaves` order,
+beside the scalar `_total_steps` (the committed file also has `_segment`;
+tools/pose_segments.py:44-62). That order takes dict keys sorted at every
+level, and the stacked `enc_blocks` / `dec_blocks` as one leaf each with a
+leading depth axis. `jax_leaf_specs` rebuilds it from the port's module
+without JAX, through the weight bridge's key mapping (`weights.torch_key`),
+so the JAX side reads these files as it reads the committed one
+(`tools/jax_eval_reference.load_npz_params`).
+
+- A weights-only snapshot holds the float32 parameters and `_total_steps`.
+- A full-state checkpoint adds the optimizer: `_count` (AdamW's step
+  count, which is also the schedule's position), `_moment_dtype`, Adam's
+  moments `mu_i` and `nu_i` and, with an EMA, `ema_i`, each in the
+  parameters' leaf order and layout, in float32. A bfloat16 first moment
+  widens to float32 exactly and narrows back exactly, so a restore is
+  exact bit for bit.
+`load_weights` reads the parameters of either kind; `restore_train_state`
+needs the full state.
 """
 from __future__ import annotations
 
+import os
 import pathlib
+import re
+import threading
+from typing import Optional
 
 import numpy as np
+import torch
 from torch import nn
 
-from .weights import STACKED, load_jax_params, torch_key
+from .weights import (
+    STACKED,
+    jax_tree_from_state_dict,
+    load_jax_params,
+    state_dict_from_jax,
+    torch_key,
+)
 
 
 
@@ -64,6 +87,224 @@ def jax_leaf_specs(model: nn.Module) -> list:
             for path, (shape, n) in sorted(specs.items())]
 
 
+def _get(tree: dict, path: list):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def to_jax_leaves(model: nn.Module, tensors: dict) -> list:
+    """{parameter name: tensor} -> float32 host copies in JAX leaf order and
+    layout (the weight bridge backwards: stacked blocks stacked, kernels
+    transposed)."""
+    specs = jax_leaf_specs(model)
+    template = {}
+    for path, shape in specs:
+        _nest(path, np.broadcast_to(np.float32(0), shape), template)
+    tree = jax_tree_from_state_dict(tensors, template)
+    return [np.array(_get(tree, path)) for path, _ in specs]
+
+
+def from_jax_leaves(model: nn.Module, leaves: list, like: dict) -> dict:
+    """Host arrays in JAX leaf order -> {parameter name: tensor} on the
+    device and dtype of `like`'s tensors (the weight bridge)."""
+    tree = {}
+    for (path, _), a in zip(jax_leaf_specs(model), leaves):
+        _nest(path, a, tree)
+    out = state_dict_from_jax(tree)
+    if set(out) != set(like):
+        raise ValueError(f"leaves for {sorted(set(out) ^ set(like))[:4]} do not match "
+                         "the model's parameters")
+    return {k: t.to(device=like[k].device, dtype=like[k].dtype) for k, t in out.items()}
+
+
+def snapshot(model: nn.Module, step: int, optimizer=None) -> dict:
+    """The arrays of a checkpoint at `step`, copied to the host: weights
+    only, or with `optimizer` (an `AdamW`) the full state."""
+    params = dict(model.named_parameters())
+    arrays = {f"arr_{i}": a for i, a in enumerate(to_jax_leaves(model, params))}
+    arrays["_total_steps"] = np.asarray(step, np.int64)
+    if optimizer is not None:
+        arrays["_count"] = np.asarray(optimizer.count, np.int64)
+        arrays["_moment_dtype"] = np.asarray(optimizer.cfg.moment_dtype)
+        state = {"mu": optimizer.mu, "nu": optimizer.nu}
+        if optimizer.ema is not None:
+            state["ema"] = optimizer.ema
+        for kind, tensors in state.items():
+            for i, a in enumerate(to_jax_leaves(model, tensors)):
+                arrays[f"{kind}_{i}"] = a
+    return arrays
+
+
+def write_npz(path, arrays: dict) -> None:
+    """Write to a temporary name beside `path`, then rename: a reader never
+    sees a partial file."""
+    path = pathlib.Path(path)
+    tmp = path.with_name(f".{path.name}.tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+class CheckpointManager:
+    """Step checkpoints `step_<8 digits>.npz` in `directory`, the newest
+    `keep` kept (JAX `CheckpointManager`). With `async_save`, `save()`
+    copies the state to the host, hands the write to a background thread
+    and returns; the next `save()` first waits for it, and `finalize()`
+    must be called once after the last save. A write goes to a hidden
+    temporary name and is renamed when done, so `latest()` and pruning see
+    only finished checkpoints."""
+
+    def __init__(self, directory, every_n_steps: int = 5000, keep: int = 5,
+                 async_save: bool = True):
+        self.directory = pathlib.Path(directory)
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.every_n_steps = every_n_steps
+        self.keep = keep
+        self.async_save = async_save
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def _ckpt_path(self, step: int) -> pathlib.Path:
+        return self.directory / f"step_{step:08d}.npz"
+
+    def should_save(self, step: int) -> bool:
+        return step > 0 and step % self.every_n_steps == 0
+
+    def _wait(self):
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("a checkpoint write failed") from err
+
+    def save(self, step: int, model: nn.Module, optimizer=None) -> pathlib.Path:
+        """Weights only, or the full state with `optimizer`."""
+        self._wait()
+        arrays = snapshot(model, step, optimizer)
+        path = self._ckpt_path(step)
+
+        def write():
+            try:
+                write_npz(path, arrays)
+                self._prune()
+            except BaseException as e:  # raised again by the next _wait
+                self._error = e
+
+        if self.async_save:
+            self._writer = threading.Thread(target=write, daemon=False)
+            self._writer.start()
+        else:
+            write()
+            self._wait()
+        return path
+
+    def finalize(self):
+        """Wait for an in-flight write (call once after the last save)."""
+        self._wait()
+        self._prune()
+
+    def _completed(self) -> list:
+        return sorted(p for p in self.directory.glob("step_*.npz")
+                      if re.fullmatch(r"step_\d+\.npz", p.name))
+
+    def _prune(self):
+        for old in self._completed()[: -self.keep]:
+            old.unlink(missing_ok=True)
+
+    def latest(self) -> Optional[pathlib.Path]:
+        ckpts = self._completed()
+        return ckpts[-1] if ckpts else None
+
+
+def _check_npz(path) -> pathlib.Path:
+    p = pathlib.Path(path)
+    if p.is_dir():
+        raise NotImplementedError(
+            f"{path}: orbax checkpoint directories are not read by the port, which "
+            "writes its own npz checkpoints (orbax is not one of its dependencies; "
+            "ROADMAP.md §1 item 1); pass an .npz checkpoint")
+    if p.suffix != ".npz":
+        raise NotImplementedError(
+            f"{path}: a torch .ckpt needs the JAX package's utils/ckpt_convert.py, "
+            "not ported yet (ROADMAP.md §1 item 7); pass an .npz checkpoint")
+    return p
+
+
+def _read_leaves(z, prefix: str, specs: list, path) -> list:
+    n = sum(1 for k in z.files if re.fullmatch(prefix + r"_\d+", k))
+    if n != len(specs):
+        raise ValueError(f"{path} has {n} {prefix} leaves, the model {len(specs)} "
+                         "(another config than the one it was written under)")
+    leaves = []
+    for i, (jpath, shape) in enumerate(specs):
+        a = np.asarray(z[f"{prefix}_{i}"])
+        if a.shape != shape:
+            raise ValueError(f"{prefix}_{i} ({'.'.join(jpath)}): shape {a.shape}, "
+                             f"the model's {shape}")
+        leaves.append(a)
+    return leaves
+
+
+def is_full_state(path) -> bool:
+    with np.load(_check_npz(path)) as z:
+        return "_count" in z.files
+
+
+def restore_train_state(path, model: nn.Module, optimizer) -> int:
+    """Load a full-state checkpoint into `model` and `optimizer` (an `AdamW`
+    of the same config) bit for bit, and return its step. A weights-only
+    snapshot loads its weights, leaves the optimizer as it is and returns 0,
+    with a warning (JAX `restore_train_state`'s fallback); any other failure
+    raises."""
+    p = _check_npz(path)
+    if not is_full_state(p):
+        print(f"WARNING: {path} is a weights-only snapshot; restoring its "
+              "weights, optimizer state and step reset", flush=True)
+        load_weights(p, model)
+        return 0
+    specs = jax_leaf_specs(model)
+    params = dict(model.named_parameters())
+    with np.load(p) as z:
+        if str(z["_moment_dtype"]) != optimizer.cfg.moment_dtype:
+            raise ValueError(f"{path}: moments in {z['_moment_dtype']}, the "
+                             f"optimizer's in {optimizer.cfg.moment_dtype}")
+        has_ema = any(k.startswith("ema_") for k in z.files)
+        if has_ema != (optimizer.ema is not None):
+            raise ValueError(f"{path}: EMA {'present' if has_ema else 'absent'}, "
+                             f"the optimizer's ema_decay {optimizer.cfg.ema_decay}")
+        weights = from_jax_leaves(model, _read_leaves(z, "arr", specs, path), params)
+        mu = from_jax_leaves(model, _read_leaves(z, "mu", specs, path), optimizer.mu)
+        nu = from_jax_leaves(model, _read_leaves(z, "nu", specs, path), optimizer.nu)
+        ema = (from_jax_leaves(model, _read_leaves(z, "ema", specs, path), optimizer.ema)
+               if has_ema else None)
+        count, step = int(z["_count"]), int(z["_total_steps"])
+    with torch.no_grad():
+        for k, prm in params.items():
+            prm.copy_(weights[k])
+    optimizer.mu, optimizer.nu, optimizer.count = mu, nu, count
+    if ema is not None:
+        optimizer.ema = ema
+    return step
+
+
+def load_ema(path, model: nn.Module) -> bool:
+    """Load the EMA of a full-state checkpoint into `model` as its weights;
+    False (nothing loaded) when the file has none."""
+    p = _check_npz(path)
+    with np.load(p) as z:
+        if not any(k.startswith("ema_") for k in z.files):
+            return False
+        params = dict(model.named_parameters())
+        ema = from_jax_leaves(model, _read_leaves(z, "ema", jax_leaf_specs(model), path),
+                              params)
+    with torch.no_grad():
+        for k, prm in params.items():
+            prm.copy_(ema[k])
+    return True
+
+
 def _nest(path: list, value, tree: dict):
     node = tree
     for p in path[:-1]:
@@ -72,31 +313,16 @@ def _nest(path: list, value, tree: dict):
 
 
 def load_weights(path, model: nn.Module) -> dict:
-    """Load the committed float16 npz into `model` (strict: every leaf
-    count, name and shape is checked) and return its metadata
+    """Load the parameters of an npz checkpoint (the committed float16
+    snapshot, or either kind this module writes) into `model` (strict:
+    every leaf count, name and shape is checked) and return its metadata
     (`total_steps`, `segment`). Leaves are cast to float32; the load copies
     them to each parameter's device and dtype."""
-    p = pathlib.Path(path)
-    if p.is_dir():
-        raise NotImplementedError(
-            f"{path}: orbax checkpoint directories are not read by the port yet "
-            "(ROADMAP.md §1 item 1, checkpointing); pass a float16 .npz snapshot")
-    if p.suffix != ".npz":
-        raise NotImplementedError(
-            f"{path}: a torch .ckpt needs the JAX package's utils/ckpt_convert.py, "
-            "not ported yet (ROADMAP.md §1 item 7); pass a float16 .npz snapshot")
+    p = _check_npz(path)
     specs = jax_leaf_specs(model)
     tree = {}
     with np.load(p) as z:
-        n = sum(1 for k in z.files if k.startswith("arr_"))
-        if n != len(specs):
-            raise ValueError(f"{path} has {n} leaves, the model {len(specs)} "
-                             "(another config than the one it was written under)")
-        for i, (jpath, shape) in enumerate(specs):
-            a = np.asarray(z[f"arr_{i}"])
-            if a.shape != shape:
-                raise ValueError(f"arr_{i} ({'.'.join(jpath)}): shape {a.shape}, "
-                                 f"the model's {shape}")
+        for (jpath, _), a in zip(specs, _read_leaves(z, "arr", specs, path)):
             _nest(jpath, a.astype(np.float32), tree)
         meta = {k.lstrip("_"): int(z[k]) for k in ("_total_steps", "_segment")
                 if k in z.files}

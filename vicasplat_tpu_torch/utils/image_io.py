@@ -86,3 +86,19 @@ def hcat(*images: np.ndarray, gap: int = 2) -> np.ndarray:
 
 def vcat(*images: np.ndarray, gap: int = 2) -> np.ndarray:
     return hcat(*[im.transpose(1, 0, 2) for im in images], gap=gap).transpose(1, 0, 2)
+
+
+def vis_depth_map(depth: np.ndarray, lo_q: float = 0.01, hi_q: float = 0.99) -> np.ndarray:
+    """A depth map coloured by matplotlib's turbo table, near red and far
+    blue, after log-quantile normalization (JAX `image_io.vis_depth_map`)."""
+    from ..visualization.colormaps import TURBO, lookup
+
+    d = np.asarray(depth, np.float64)
+    valid = d > 0
+    x = np.zeros_like(d)
+    if valid.any():
+        lo = np.quantile(np.log(d[valid]), lo_q)
+        hi = np.quantile(np.log(d[valid]), hi_q)
+        x[valid] = (np.log(d[valid]) - lo) / max(hi - lo, 1e-9)
+        x = np.clip(x, 0, 1)
+    return lookup(TURBO, 1.0 - x)
