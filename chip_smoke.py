@@ -79,10 +79,24 @@ Phases, each printing lines with their seconds:
             its times (the `trained` row); then the port's eval_pose on the
             same arguments, its summary (ATE, RPE, pose AUC) held to the
             JAX package's PoseEvaluator and pose_metrics.json checked;
+  serve     the serving engine (vicasplat_tpu_torch/serving.py) on the
+            flagship and accel models above: the first request of 8 frames
+            of 256^2 and the 12-view render capture one CUDA graph each;
+            each replay held to the eager call of the same program (bit for
+            bit, or else within the plain-k1 rule and RENDER_TOL), the
+            launches counted at capture exactly (K1 12; K1 12 + K3 1; K2 12
+            + K4 12) and the same kernels in torch.profiler's records of one
+            replay; medians of 5 after 2 warm-ups, eager and replayed, the
+            busy share of a replayed request, throughput() and the graph
+            pools; POST /reconstruct on loopback equal to a direct call, a
+            jpeg_data request answered 501; the quantized engine (W8A8,
+            center head float) against the bf16 one, and one flagship
+            linear's torch._int_mm beside its bf16 matmul;
   eval-accel the same run with decoder.rasterize.backend=pallas and
-            binning=origin: K2 and K4 launches exactly per scene (once a
-            view in each of the 101 renders), each scene's scores held to
-            eval's. Beside it, two child processes
+            binning=origin, on the first 4 of eval's 8 scenes (each scene
+            is held on its own; the cut pays for the serving phases): K2
+            and K4 launches exactly per scene (once a view in each of the
+            101 renders), each scene's scores held to eval's. Beside it, two child processes
             (vicasplat_tpu_torch/diagnostics/eval_split.py) run the same
             configuration with K2 and K4 swapped for their plain versions,
             the plain compositing summed in chunks of 128 rows
@@ -103,6 +117,15 @@ Phases, each printing lines with their seconds:
             with the pose-alignment steps cut to 10 (printed as reduced):
             K1, K3, K2 and K4 with exact launches, finite scores, shapes and
             the files written, seconds per section and peak memory;
+  serve-trained the committed synthetic_pose checkpoint in the serving
+            engine, over HTTP on loopback: /reconstruct on the context
+            frames of the held-out scenes synthetic_04100 ... 04103 and
+            /reconstruct_video on synthetic_04100 rendered with 10 frames
+            (window 4, overlap 2: 4 windows, each a replay of the one
+            captured program), in float32 held to the JAX engine's answers
+            (vicasplat_tpu_torch/evaluation/reference_synthetic_pose_serve.json,
+            tools/jax_serve_reference.py; SERVE_TOL) and in bf16 with its
+            gaps printed;
   train-mode the port's train mode (vicasplat_tpu_torch.main, mode=train) of
             the synthetic_pose experiment at its widths (64^2, encoder 384 x
             6, decoder 384 x 4, batch 8 of 4 context frames and 2 targets,
@@ -136,6 +159,7 @@ It needs one CUDA card; without one it exits non-zero and prints no result.
 import contextlib
 import dataclasses
 import importlib
+import io
 import json
 import math
 import os
@@ -171,12 +195,24 @@ POSE_TOL = {"ate": 0.01, "rpe_trans": 0.01, "rpe_rot": 0.1, "auc@5": 0.01,
 # to 0.0112 dB and 0.00174 SSIM, K2 alone by up to 0.0128 dB and 0.00039
 # SSIM (vicasplat_tpu_torch/diagnostics/eval_split.py)
 ACCEL_TOL = {"psnr": 0.05, "ssim": 0.002, "ate": 0.002}
+# eval-accel's held-out scenes: the first 4 of eval's 8. It holds each scene
+# on its own, so the cut loses no check; it pays for the serving phases
+ACCEL_SCENES = 4
 # eval-accel against eval-origin (the same binning, K2 and K4 swapped for
 # their plain versions), per scene: at most twice as far as the plain
 # compositing summed in chunks of 64 rows is from the same in chunks of 128
 # (the same function in another float32 order through 100 alignment
 # steps), plus this floor
 KERNEL_FLOOR = {"psnr": 1e-3, "ssim": 1e-4, "ate": 1e-6}
+# serve-trained: the JAX InferenceEngine's answers on the committed
+# checkpoint (tools/jax_serve_reference.py), and the limits the port's HTTP
+# answers are held to: poses absolute, centers_mean relative to its largest
+# absolute entry, window scales relative
+SERVE_REF = "vicasplat_tpu_torch/evaluation/reference_synthetic_pose_serve.json"
+SERVE_TOL = {"poses": 1e-2, "centers_mean": 1e-2, "window_scales": 1e-2}
+# each kernel's name in the profiler's device records
+KERNEL_SYMBOLS = {"flash_attn": "flash_fwd_kernel", "dpt_tail": "dpt_tail_kernel",
+                  "composite": "composite_kernel", "bitonic_topk": "bitonic_topk_kernel"}
 # pose-alignment steps of eval-flagship (the config's 100, cut for time)
 FLAGSHIP_ALIGN_STEPS = 10
 # the JAX package's train loop on the CPU from the committed checkpoint
@@ -1240,7 +1276,7 @@ def eval_run(dev, name, extra, reset_counts, counts, keep_first=False, patches=(
                              f"keys {sorted(bench)}, memory {memory}")
     bad = [(r["scene"], k) for r in results for k in ("psnr", "ssim", "ate")
            if not math.isfinite(r.get(k, math.nan))]
-    if len(results) != 8 or bad:
+    if len(results) != cfg.dataset["synthetic"]["n_test_scenes"] or bad:
         raise AssertionError(f"{len(results)} scenes scored, non-finite {bad}")
     return dict(summary=summary, scenes=results, per_scene=per_scene, launches=launches,
                 wall_s=wall, sections={k: v["mean_warm_s"] for k, v in bench.items()},
@@ -1355,11 +1391,12 @@ def eval_phases(dev, smi, reset_counts, counts, zero, model_acc, flagship_cfg):
     split_dir.mkdir(parents=True, exist_ok=True)
     children = {name: subprocess.Popen(
         [sys.executable, "-m", "vicasplat_tpu_torch.diagnostics.eval_split", "--run",
-         name, "--dir", str(split_dir)], cwd=ROOT, stdout=subprocess.DEVNULL)
-        for name in ("origin", "origin64")}
+         name, "--dir", str(split_dir), "--scenes", str(ACCEL_SCENES)], cwd=ROOT,
+        stdout=subprocess.DEVNULL) for name in ("origin", "origin64")}
     try:
         ra = eval_run(dev, "accel", ["decoder.rasterize.backend=pallas",
-                                     "decoder.rasterize.binning=origin"],
+                                     "decoder.rasterize.binning=origin",
+                                     f"dataset.synthetic.n_test_scenes={ACCEL_SCENES}"],
                       reset_counts, counts, keep_first=True)
         codes = {name: p.wait(timeout=900) for name, p in children.items()}
     finally:
@@ -1391,7 +1428,7 @@ def eval_phases(dev, smi, reset_counts, counts, zero, model_acc, flagship_cfg):
     if bad:
         raise AssertionError(f"eval-accel and eval disagree per scene: {bad}")
     for name, rs in split.items():
-        if rs["launches"] != {"flash_attn": dec_depth * 8, "composite": 0,
+        if rs["launches"] != {"flash_attn": dec_depth * ACCEL_SCENES, "composite": 0,
                               "bitonic_topk": 0}:
             raise AssertionError(f"eval-origin ({name}) launches {rs['launches']}")
     origin = split["origin"]["scenes"]
@@ -1533,6 +1570,357 @@ def eval_phases(dev, smi, reset_counts, counts, zero, model_acc, flagship_cfg):
     rec["eval_flagship"] = dict(scene=rf["scene"], views=views, launches=launches,
                                 scores=scores, seconds=secs, peak_gb=peak_gb,
                                 reduced=reduced)
+    return rec
+
+
+def post_npz(port, path, **arrays):
+    """POST an npz of `arrays` to the loopback server: (status, JSON answer)."""
+    import urllib.error
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=buf.getvalue(),
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def profile_kernel_counts(fn):
+    """{kernel: device records} of the repo's kernels in one call of fn
+    under torch.profiler (KERNEL_SYMBOLS)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    found = {name: sum(e.count for e in events if sym in e.key)
+             for name, sym in KERNEL_SYMBOLS.items()}
+    return {k: v for k, v in found.items() if v}
+
+
+def median_ms(fns, rounds=7, warmup=2):
+    """{name: (median ms, all timed ms)} of each fn by CUDA events, the fns
+    taken in turns, `warmup` rounds untimed."""
+    times = {k: [] for k in fns}
+    for i in range(rounds):
+        for k, fn in fns.items():
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                times[k].append(e0.elapsed_time(e1))
+    return {k: (statistics.median(v), v) for k, v in times.items()}
+
+
+def replay_vs_eager(eng, scene, out, images01, K, tgt_ext, tgt_K, plain_tol):
+    """The replayed reconstruct against the eager call of the same program,
+    and the replayed render against the eager render of the replay's own
+    Gaussians: (bit for bit?, distances). Bit for bit is expected; if cuBLAS
+    picked other algorithms under capture, the reconstruct is held within
+    the plain-k1 rule and the render within RENDER_TOL."""
+    B, V = tgt_ext.shape[:2]
+    with torch.no_grad():
+        g, poses, _ = eng._reconstruct_raw()(images01, K)
+        ref = eng._render_raw((256, 256))(
+            scene.gaussians, tgt_ext, tgt_K, torch.full((B, V), 0.05, device=K.device),
+            torch.full((B, V), 100.0, device=K.device))
+    torch.cuda.synchronize()
+    exact = (torch.equal(scene.poses, poses)
+             and all(torch.equal(a, b) for a, b in zip(scene.gaussians, g))
+             and all(torch.equal(a, b) for a, b in zip(out, ref)))
+    dist = {"means_rel": ((scene.gaussians.means - g.means).abs().max()
+                          / g.means.abs().max()).item(),
+            "opacities_abs": (scene.gaussians.opacities - g.opacities).abs().max().item(),
+            "poses_abs": (scene.poses - poses).abs().max().item(),
+            "color_abs": (out.color - ref.color).abs().max().item()}
+    if not exact:
+        bad = [m for m in plain_tol if not dist[m] <= plain_tol[m]]
+        if bad or not dist["color_abs"] < RENDER_TOL:
+            raise AssertionError(f"replay and eager disagree beyond the plain-k1 rule "
+                                 f"(reconstruct) and {RENDER_TOL} (render): {dist}")
+    return exact, dist
+
+
+def serve_phase(dev, smi, configs, plain_tol, reset_counts, counts):
+    """Phase serve (see the module's docstring): the flagship
+    InferenceEngine in both configurations on the script's models."""
+    from vicasplat_tpu_torch import serving
+    from vicasplat_tpu_torch.ops import quant
+
+    context, tgt_ext, tgt_K = flagship_inputs(dev)
+    images01 = ((context["image"] + 1) / 2).contiguous()  # the engine takes [0, 1]
+    K = context["intrinsics"].contiguous()
+    V = tgt_ext.shape[1]
+    rec, engines = {}, {}
+    for which, (model, dec) in configs.items():
+        t0 = time.perf_counter()
+        eng = engines[which] = serving.InferenceEngine(model.cfg, model=model, decoder=dec,
+                                                       device=dev)
+        dec_depth = model.cfg.backbone.dec_depth
+        reset_counts()  # the first request captures both programs
+        scene = eng.reconstruct(images01, K)
+        out = eng.render(scene, tgt_ext, tgt_K, (256, 256))
+        torch.cuda.synchronize()
+        seen = counts()
+        capture_s = time.perf_counter() - t0
+        prog = eng._reconstruct_fn(images01.shape, tuple(K.shape))
+        rprog = next(iter(eng._render.items.values()))
+        want_r, want_v = {"flash_attn": dec_depth}, {}
+        if which == "accel":
+            want_r["dpt_tail"] = 1
+            want_v = {"composite": V, "bitonic_topk": V}
+        if prog.launches != want_r or rprog.launches != want_v:
+            raise AssertionError(f"serve {which}: launches at capture {prog.launches} + "
+                                 f"{rprog.launches}, not {want_r} + {want_v}")
+        idle = [k for k in {**want_r, **want_v} if not seen[k]]
+        if idle:
+            raise AssertionError(f"serve {which}: kernels {idle} never launched")
+        exact, dist = replay_vs_eager(eng, scene, out, images01, K, tgt_ext, tgt_K,
+                                      plain_tol)
+        prof_r = profile_kernel_counts(lambda: eng.reconstruct(images01, K))
+        prof_v = profile_kernel_counts(lambda: eng.render(scene, tgt_ext, tgt_K, (256, 256)))
+        if prof_r != want_r or prof_v != want_v:
+            raise AssertionError(f"serve {which}: the profiled replays show {prof_r} + "
+                                 f"{prof_v}, not {want_r} + {want_v}")
+        eager_r, eager_v = eng._reconstruct_raw(), eng._render_raw((256, 256))
+        near = torch.full((1, V), 0.05, device=dev)
+        far = torch.full((1, V), 100.0, device=dev)
+
+        @torch.no_grad()
+        def eager_request():
+            g, p, i = eager_r(images01, K)
+            return serving.SceneBatch(gaussians=g, poses=p, intrinsics=i)
+
+        med = median_ms({
+            "reconstruct_eager": eager_request,
+            "reconstruct_replay": lambda: eng.reconstruct(images01, K),
+            "render_eager": lambda: torch.no_grad()(eager_v)(
+                scene.gaussians, tgt_ext, tgt_K, near, far),
+            "render_replay": lambda: eng.render(scene, tgt_ext, tgt_K, (256, 256))})
+        busy = {}
+        for stage, fn in (("reconstruct", lambda: eng.reconstruct(images01, K)),
+                          ("render", lambda: eng.render(scene, tgt_ext, tgt_K, (256, 256)))):
+            wall, dev_ms, _, _ = profile_window(fn)
+            busy[stage] = {"device_ms": dev_ms, "profiled_wall_ms": wall,
+                           "busy_of_median": (dev_ms / med[f"{stage}_replay"][0]
+                                              if dev_ms else None)}
+        tp = eng.throughput(images01, K)
+        pools = {"reconstruct": prog.pool_bytes, "render": rprog.pool_bytes}
+        phase("serve", t0, f"[{smi}] {which}: first request (warm-up, capture, replay) "
+              f"{capture_s:.2f} s; launches at capture {prog.launches} + {rprog.launches}; "
+              f"profiled replays {prof_r} + {prof_v}; replay vs eager: "
+              + ("bit for bit" if exact else "within the plain-k1 rule") + f" {dist}")
+        phase("serve", t0, f"[{smi}] {which}: medians of 5 (ms): " + ", ".join(
+            f"{k} {v[0]:.3f}" for k, v in med.items()) + "; busy share of a replayed "
+            "request: " + ", ".join(
+                f"{k} " + ("not measured" if v["busy_of_median"] is None else
+                           f"{v['device_ms']:.3f} ms device, {v['busy_of_median']:.3f} "
+                           "of the median") for k, v in busy.items())
+            + f"; throughput {tp}; graph pools (bytes) {pools}")
+        rec[which] = {"launches_at_capture": {"reconstruct": prog.launches,
+                                              "render": rprog.launches},
+                      "profiled_replay": {"reconstruct": prof_r, "render": prof_v},
+                      "bit_for_bit": exact, "distances": dist,
+                      "medians_ms": {k: v[0] for k, v in med.items()},
+                      "times_ms": {k: v[1] for k, v in med.items()}, "busy": busy,
+                      "throughput": tp, "pool_bytes": pools, "first_request_s": capture_s}
+
+    # ---- the HTTP endpoint on loopback ----
+    t0 = time.perf_counter()
+    eng = engines["default"]
+    srv = serving.serve(eng, port=0, block=False)
+    try:
+        port = srv.server_address[1]
+        status, body = post_npz(port, "/reconstruct", images=images01.cpu().numpy(),
+                                intrinsics=K.cpu().numpy())
+        direct = eng.reconstruct(images01, K)
+        means = direct.gaussians.means.float().cpu().numpy()
+        jpeg = post_npz(port, "/reconstruct", jpeg_data=np.zeros(16, np.uint8),
+                        jpeg_sizes=np.array([16]), batch_shape=np.array([1, 1]))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    checks = {"status 200": status == 200,
+              "poses": body.get("poses") == direct.poses.cpu().numpy().tolist(),
+              "centers_mean": body.get("centers_mean")
+              == np.mean(means, axis=(1, 2, 3)).tolist(),
+              "num_gaussians": body.get("num_gaussians") == 8 * 256 * 256,
+              "jpeg 501": jpeg[0] == 501}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"serve HTTP fails {bad}: {status} {jpeg}")
+    phase("serve", t0, f"HTTP /reconstruct on loopback: poses and centers_mean equal "
+          f"the direct call's, latency_s {body['latency_s']:.4f}; jpeg_data answers "
+          f"{jpeg[0]}")
+    rec["http"] = {"latency_s": body["latency_s"], "jpeg_status": jpeg[0]}
+
+    # ---- W8A8: the quantized engine against the bf16 one ----
+    t0 = time.perf_counter()
+    model = configs["default"][0]
+    qeng = serving.InferenceEngine(model.cfg, model=model, quantize=True, device=dev)
+    q = qeng.reconstruct(images01, K)
+    b = eng.reconstruct(images01, K)
+    torch.cuda.synchronize()
+    qdist = {"means_rel": ((q.gaussians.means - b.gaussians.means).abs().max()
+                           / b.gaussians.means.abs().max()).item(),
+             "means_rel_l2": ((q.gaussians.means - b.gaussians.means).norm()
+                              / b.gaussians.means.norm()).item(),
+             "poses_abs": (q.poses - b.poses).abs().max().item()}
+    if not all(torch.isfinite(x).all() for x in (*q.gaussians, q.poses)):
+        raise AssertionError("the quantized reconstruct is not finite")
+    qprog = qeng._reconstruct_fn(images01.shape, tuple(K.shape))
+    if qprog.launches != {"flash_attn": model.cfg.backbone.dec_depth}:
+        raise AssertionError(f"quantized capture launches {qprog.launches}")
+    qmed = median_ms({"bf16": lambda: eng.reconstruct(images01, K),
+                      "w8a8": lambda: qeng.reconstruct(images01, K)})
+    fc1 = model.backbone.enc_blocks[0].mlp.fc1  # the largest flagship linear
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(8 * 257, fc1.in_features, generator=g, device=dev).to(torch.bfloat16)
+    ql = quant.quantize_linear(fc1)
+    xq = torch.randint(-127, 128, tuple(x.shape), generator=g, device=dev, dtype=torch.int8)
+    mm = {"int_mm_ms": cuda_ms(lambda: quant._int8_matmul(xq, ql.w_q)),
+          "bf16_matmul_ms": cuda_ms(lambda: torch.matmul(x, fc1.weight.t())),
+          "w8a8_linear_ms": cuda_ms(lambda: quant.linear_w8a8(ql, x, torch.bfloat16)),
+          "shape": [x.shape[0], fc1.in_features, fc1.out_features]}
+    phase("serve", t0, f"[{smi}] quantize=True: {qeng.n_quantized} families int8 (the "
+          f"center head kept float), from the bf16 weights; distance to the bf16 engine "
+          f"{qdist}; replayed reconstruct medians (ms) bf16 {qmed['bf16'][0]:.3f}, w8a8 "
+          f"{qmed['w8a8'][0]:.3f}; one linear {mm}")
+    rec["quantize"] = {"n_quantized": qeng.n_quantized, "distance": qdist,
+                       "medians_ms": {k: v[0] for k, v in qmed.items()}, "linear": mm}
+    for e in (*engines.values(), qeng):
+        e.release()
+    del engines, qeng, eng, q, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_trained_phase(dev, smi, reset_counts, counts):
+    """Phase serve-trained (see the module's docstring)."""
+    from vicasplat_tpu_torch import serving
+    from vicasplat_tpu_torch.data.data_module import DataModule
+    from vicasplat_tpu_torch.data.synthetic_scenes import (
+        SyntheticScenesConfig,
+        generate_scene,
+    )
+    from vicasplat_tpu_torch.main import build_model
+    from vicasplat_tpu_torch.utils.config import parse_cli
+
+    t0 = time.perf_counter()
+    ref = json.loads((ROOT / SERVE_REF).read_text())
+    cfg = parse_cli(eval_args("serve"))
+    n_req = len(ref["inputs"]["scenes"])
+    requests = []
+    for batch in DataModule(cfg.dataset, cfg.data_loader, None, device=dev).test_dataloader():
+        ctx = batch["context"]
+        for i in range(ctx["image"].shape[0]):
+            requests.append((batch["scene"][i], ctx["image"][i:i + 1].cpu().numpy(),
+                             ctx["intrinsics"][i:i + 1].cpu().numpy()))
+        if len(requests) >= n_req:
+            break
+    requests = requests[:n_req]
+    v = ref["inputs"]["video"]
+    ds = cfg.dataset["synthetic"]
+    fields = {f.name for f in dataclasses.fields(SyntheticScenesConfig)}
+    vcfg = SyntheticScenesConfig(**dict(
+        {k: (tuple(x) if isinstance(x, list) else x) for k, x in ds.items() if k in fields},
+        n_frames=v["n_frames"]))
+    video = generate_scene(ds["n_scenes"] + ds["n_val_scenes"] + v["scene_offset"], vcfg,
+                           device=dev)
+    frames = video["images"].astype(np.float32)
+    vK = np.broadcast_to(video["intrinsics"], (frames.shape[0], 3, 3)).astype(np.float32)
+    inputs_gap = {"scenes": [s == r["scene"] for (s, _, _), r in
+                             zip(requests, ref["inputs"]["scenes"])],
+                  "images_sum_rel": max(
+                      abs(float(x.astype(np.float64).sum()) / r["images_sum"] - 1)
+                      for (_, x, _), r in zip(requests, ref["inputs"]["scenes"])),
+                  "video_sum_rel": abs(float(frames.astype(np.float64).sum())
+                                       / v["images_sum"] - 1)}
+    if not all(inputs_gap["scenes"]) or video["scene"] != v["scene"]:
+        raise AssertionError(f"serve-trained inputs are not the reference's: {inputs_gap}")
+    rec = {"inputs": inputs_gap}
+    # float32 is held to the reference: the JAX engine's own bf16 answers are
+    # up to 0.014 from its float32 ones (poses) and 2.5 % (window scales),
+    # above the limits, so bf16 gaps are printed, not held
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        t1 = time.perf_counter()
+        answers = ref["answers"][dtype_name]
+        eng = serving.InferenceEngine(cfg.encoder, model=build_model(cfg, dev), dtype=dtype,
+                                      decoder=cfg.decoder, device=dev)
+        srv = serving.serve(eng, port=0, block=False)
+        reset_counts()
+        try:
+            port = srv.server_address[1]
+            got = [post_npz(port, "/reconstruct", images=x, intrinsics=k)
+                   for _, x, k in requests]
+            prog = eng._reconstruct_fn((1,) + requests[0][1].shape[1:],
+                                       (1,) + requests[0][2].shape[1:])
+            calls = prog.calls
+            vid = post_npz(port, "/reconstruct_video", images=frames, intrinsics=vK,
+                           window=np.int64(v["window"]), overlap=np.int64(v["overlap"]))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        torch.cuda.synchronize()
+        seen = counts()
+        bad = [s for s, _ in got + [vid] if s != 200]
+        if bad:
+            raise AssertionError(f"serve-trained {dtype_name}: HTTP status {bad}")
+        gaps = {"poses": max(np.abs(np.asarray(b["poses"]) - np.asarray(r["poses"])).max()
+                             for (_, b), r in zip(got, answers["reconstruct"])),
+                "centers_mean": max(
+                    np.abs(np.asarray(b["centers_mean"]) - np.asarray(r["centers_mean"])).max()
+                    / np.abs(np.asarray(r["centers_mean"])).max()
+                    for (_, b), r in zip(got, answers["reconstruct"])),
+                "video_poses": float(np.abs(np.asarray(vid[1]["poses"])
+                                            - np.asarray(answers["reconstruct_video"]["poses"])
+                                            ).max()),
+                "window_scales": float(np.abs(
+                    np.asarray(vid[1]["window_scales"])
+                    / np.asarray(answers["reconstruct_video"]["window_scales"]) - 1).max())}
+        counts_ok = (all(b["num_gaussians"] == r["num_gaussians"] for (_, b), r in
+                         zip(got, answers["reconstruct"]))
+                     and vid[1]["num_gaussians"]
+                     == answers["reconstruct_video"]["num_gaussians"])
+        windows = prog.calls - calls
+        one_program = len(eng._recon.items) == 1 and windows == len(
+            vid[1]["window_scales"]) == 4
+        k1 = "flash_attn_f32" if dtype == torch.float32 else "flash_attn"
+        k1_ok = (prog.launches == {k1: cfg.encoder.backbone.dec_depth}
+                 and seen[k1] == 2 * cfg.encoder.backbone.dec_depth)  # warm-up + capture
+        limits = {"poses": SERVE_TOL["poses"], "centers_mean": SERVE_TOL["centers_mean"],
+                  "video_poses": SERVE_TOL["poses"],
+                  "window_scales": SERVE_TOL["window_scales"]}
+        held = dtype == torch.float32
+        phase("serve-trained", t1, f"[{smi}] {dtype_name} engine over HTTP: "
+              f"{len(got)} held-out scenes and a {frames.shape[0]}-frame video "
+              f"({windows} windows, one program: {one_program}); launches at capture "
+              f"{prog.launches}, in the run {seen[k1]} ({k1}); gaps to the JAX engine "
+              + ("(held)" if held else "(printed, not held)") + ": " + ", ".join(
+                  f"{k} {gaps[k]:.3e} (limit {limits[k]})" for k in gaps)
+              + f"; num_gaussians equal: {counts_ok}")
+        if not (one_program and counts_ok and k1_ok):
+            raise AssertionError(f"serve-trained {dtype_name}: one program {one_program}, "
+                                 f"counts {counts_ok}, K1 {prog.launches} / {seen[k1]}")
+        if held:
+            over = [k for k in gaps if not gaps[k] <= limits[k]]
+            if over:
+                raise AssertionError(f"serve-trained: the port's answers and the JAX "
+                                     f"engine's disagree: {over} {gaps}")
+        rec[dtype_name] = {"gaps": gaps, "held": held, "windows": windows,
+                           "launches_at_capture": prog.launches,
+                           "latency_s": [b["latency_s"] for _, b in got],
+                           "video_latency_s": vid[1]["latency_s"]}
+        eng.release()
+    phase("serve-trained", t0, f"inputs against the reference's: {inputs_gap}")
     return rec
 
 
@@ -1872,14 +2260,14 @@ def main():
         decoder_forward,
     )
     from vicasplat_tpu_torch.kernels import (
+        COUNTERS,
         attention_reference,
         bitonic_topk,
         build,
-        composite_launch,
         dpt_tail_reference,
         flash_attention,
-        flash_attention_backward,
         fused_dpt_tail,
+        launch_counts,
     )
     from vicasplat_tpu_torch.models import (
         GaussianAdapterConfig,
@@ -1898,23 +2286,13 @@ def main():
     render_mod = importlib.import_module("vicasplat_tpu_torch.ops.rasterize.render")
 
     torch.backends.cudnn.allow_tf32 = False  # float32 convs in full float32
-    # each kernel's launch count: (wrapper, attribute)
-    counters = {"flash_attn": (flash_attention, "launches"),
-                "flash_attn_bwd": (flash_attention_backward, "launches"),
-                "flash_attn_f32": (flash_attention, "f32_launches"),
-                "flash_attn_f32_bwd": (flash_attention_backward, "f32_launches"),
-                "dpt_tail": (fused_dpt_tail, "launches"),
-                "composite": (composite_launch, "launches"),
-                "bitonic_topk": (bitonic_topk, "launches")}
 
     def reset_counts():
-        for fn, attr in counters.values():
+        for fn, attr in COUNTERS.values():
             setattr(fn, attr, 0)
 
-    def counts():
-        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-
-    zero = {name: 0 for name in counters}
+    counts = launch_counts
+    zero = {name: 0 for name in COUNTERS}
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -2187,12 +2565,16 @@ def main():
     if bad:
         raise AssertionError(f"kernel and plain forward disagree: {bad}")
 
-    # ---- the trained checkpoint's test mode, and the flagship's eval ----
+    # ---- the serving engine on the same models ----
     del ref, alt
+    serve = serve_phase(dev, smi, configs, dict(tol), reset_counts, counts)
+
+    # ---- the trained checkpoint's test mode, and the flagship's eval ----
     evals = eval_phases(dev, smi, reset_counts, counts, zero, model_acc,
                         dataclasses.replace(cfg, head_tail_backend="pallas"))
     del model, model_acc, configs, out, out_acc, rendered, rendered_acc
     torch.cuda.empty_cache()
+    serve_trained = serve_trained_phase(dev, smi, reset_counts, counts)
     train_mode = train_mode_phase(dev, smi, reset_counts, counts, zero)
 
     def entry(name, replaces, r, launches=None, source=None):
@@ -2259,6 +2641,8 @@ def main():
             for which in med},
         "forward_plain_attention_ms": plain_fwd_ms,
         "eval": evals,
+        "serve": serve,
+        "serve_trained": serve_trained,
         "train_mode": train_mode,
         "wall_s": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)

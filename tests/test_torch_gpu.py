@@ -681,3 +681,113 @@ def test_train_loader_threads_on_card(cuda):
         cpu.close()
     assert torch.isfinite(x).all()
     assert not [t for t in set(threading.enumerate()) - threads if t.is_alive()]
+
+
+# ---- the serving engine's captured programs ----
+
+def _tiny_bf16_engine(accel: bool, device):
+    """A tiny engine in bf16 at head dim 64 (K1's bf16 route), with the DPT
+    heads' full widths (K3's gates) in the accelerator configuration."""
+    import dataclasses
+
+    from vicasplat_tpu_torch.decoder.splatting import DecoderSplattingConfig
+    from vicasplat_tpu_torch.models import (
+        GaussianAdapterConfig,
+        VicaNetConfig,
+        VicaSplatConfig,
+    )
+    from vicasplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from vicasplat_tpu_torch.serving import InferenceEngine
+
+    cfg = VicaSplatConfig(
+        backbone=VicaNetConfig(img_size=32, enc_embed_dim=128, enc_depth=2,
+                               enc_num_heads=2, dec_embed_dim=128, dec_depth=4,
+                               dec_num_heads=2),
+        gaussian_adapter=GaussianAdapterConfig(sh_degree=2))
+    dec = DecoderSplattingConfig()
+    if accel:
+        cfg = dataclasses.replace(cfg, head_tail_backend="pallas")
+        dec = DecoderSplattingConfig(rasterize=RasterizeConfig(backend="pallas",
+                                                               binning="origin"))
+    return InferenceEngine(cfg, decoder=dec, device=device)
+
+
+def _serving_inputs(device, B=1, T=3, V=3):
+    g = torch.Generator().manual_seed(11)
+    images = torch.rand(B, T, 32, 32, 3, generator=g)
+    K = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]]).expand(B, T, 3, 3)
+    ext = torch.eye(4).repeat(B, V, 1, 1)
+    ext[:, :, 2, 3] = torch.linspace(-6.0, -3.0, V)
+    return (images.to(device), K.contiguous().to(device), ext.to(device),
+            K[:, :1].expand(B, V, 3, 3).contiguous().to(device))
+
+
+@pytest.mark.parametrize("accel", [False, True])
+def test_engine_replay_equals_eager(cuda, accel):
+    """The captured reconstruct and render replay the eager calls' results
+    bit for bit, on a second input too, and count the kernels' launches at
+    capture: K1 a decoder block, and in the accelerator configuration K3
+    once and K2 and K4 once a view."""
+    eng = _tiny_bf16_engine(accel, cuda)
+    images, K, ext, tK = _serving_inputs(cuda)
+    near, far = torch.full((1, 3), 0.05, device=cuda), torch.full((1, 3), 100.0, device=cuda)
+    eager = eng._reconstruct_raw()
+    render = eng._render_raw((32, 32))
+    for step in range(2):
+        x = images if step == 0 else images.flip(2)
+        scene = eng.reconstruct(x, K)
+        out = eng.render(scene, ext, tK, (32, 32))
+        with torch.no_grad():
+            g, poses, _ = eager(x, K)
+            ref = render(g, ext, tK, near, far)
+        assert torch.equal(scene.poses, poses)
+        for a, b in zip(scene.gaussians, g):
+            assert torch.equal(a, b)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+    prog = eng._reconstruct_fn(images.shape, tuple(K.shape))
+    rprog = next(iter(eng._render.items.values()))
+    assert prog.calls == 2 and prog.graph is not None
+    assert prog.launches == ({"flash_attn": 4, "dpt_tail": 1} if accel
+                             else {"flash_attn": 4})
+    assert rprog.launches == ({"composite": 3, "bitonic_topk": 3} if accel else {})
+    # the SceneBatch of the first request survives the second
+    s1 = eng.reconstruct(images, K)
+    keep = s1.gaussians.means.clone()
+    eng.reconstruct(images.flip(2), K)
+    assert torch.equal(s1.gaussians.means, keep)
+
+
+def test_engine_capture_failure_raises(cuda):
+    """A forward that reads a value back to the host cannot be captured: the
+    engine raises, and runs nothing eagerly in its place."""
+    from vicasplat_tpu_torch import serving
+
+    eng = _tiny_bf16_engine(False, cuda)
+    images, K, _, _ = _serving_inputs(cuda)
+    real = serving.vicasplat_forward
+
+    def syncing(model, ctx, **kw):
+        ctx["image"].sum().item()
+        return real(model, ctx, **kw)
+
+    with mock.patch.object(serving, "vicasplat_forward", syncing):
+        with pytest.raises(RuntimeError):
+            eng.reconstruct(images, K)
+    assert eng._reconstruct_fn(images.shape, tuple(K.shape)).graph is None
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("m,k,n", [(2056, 768, 2304), (8, 768, 4608)])
+def test_int_mm_exact_at_flagship_linears(cuda, m, k, n):
+    """torch._int_mm through quant._int8_matmul equals the exact int32
+    product at the flagship decoder's qkv shape (2056 tokens) and at the
+    camera tokens' modulation (8 rows, padded to 17)."""
+    from vicasplat_tpu_torch.ops.quant import _int8_matmul
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8)
+    got = _int8_matmul(x, w)
+    ref = (x.double() @ w.double().t()).to(torch.int32)  # exact below 2^53
+    assert got.dtype == torch.int32 and torch.equal(got, ref)

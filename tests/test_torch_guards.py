@@ -55,7 +55,9 @@ def test_port_files_exist():
                 # the train mode's
                 "utils/step_tracker", "utils/loggers", "loss/lpips",
                 "visualization/layout", "visualization/colormaps",
-                "visualization/bitmap_font"):
+                "visualization/bitmap_font",
+                # the serving path's
+                "serving", "streaming", "ops/quant", "utils/device_cache"):
         assert f"vicasplat_tpu_torch/{mod}.py" in names, mod
 
 

@@ -12,6 +12,7 @@ from ..geometry.se3 import rigid_inverse
 from ..ops.rasterize import RasterizeConfig, render
 from ..ops.rasterize.render import coverage_stats
 from ..ops.rasterize.projection import cov6_from_matrix, cov6_from_scale_rot
+from ..utils.device_cache import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +84,11 @@ def prune_gaussians(g: Gaussians, fraction: float) -> Gaussians:
                      scales=unpack("scales"), rotations=unpack("rotations"))
 
 
+@device_constant
+def _background(color: tuple, device) -> torch.Tensor:
+    return torch.tensor(color, dtype=torch.float32, device=device)
+
+
 def _cov6(g: Gaussians) -> torch.Tensor:
     """(B, N, 6) packed covariances; scales and rotations are the source of
     truth where the adapter filled them."""
@@ -113,8 +119,7 @@ def decoder_forward(
         gaussians = prune_gaussians(gaussians, cfg.prune_fraction)
     if sh_degree is None:
         sh_degree = int(round(gaussians.harmonics.shape[-1] ** 0.5)) - 1
-    dev = gaussians.means.device
-    bg = torch.tensor(cfg.background_color, dtype=torch.float32, device=dev)
+    bg = _background(tuple(cfg.background_color), gaussians.means.device)
     if cfg.make_scale_invariant:
         scale = 1.0 / near[:, 0]  # (B,)
         top = torch.cat([extrinsics[..., :3, :3],

@@ -39,8 +39,9 @@ PAIRS = {"binning": ("origin", "default"), "kernels": ("accel", "origin"),
 SCORES = ("psnr", "ssim", "ate")
 
 
-def run_one(name: str, out_dir: pathlib.Path) -> dict:
-    """One test mode in this process: per-scene scores and launches."""
+def run_one(name: str, out_dir: pathlib.Path, scenes: int = 8) -> dict:
+    """One test mode in this process, on the first `scenes` held-out
+    scenes: per-scene scores and launches."""
     import torch
 
     from .. import main as tmain
@@ -51,7 +52,8 @@ def run_one(name: str, out_dir: pathlib.Path) -> dict:
 
     cfg = parse_cli(["+experiment=synthetic_pose", "mode=test",
                      "dataset.synthetic.n_scenes=4096", f"checkpointing.load={ROOT / NPZ}",
-                     f"test.output_path={out_dir / name}", *RUNS[name]])
+                     f"test.output_path={out_dir / name}",
+                     f"dataset.synthetic.n_test_scenes={scenes}", *RUNS[name]])
     patches = []
     if name.startswith("origin"):
         chunk = 64 if name == "origin64" else None
@@ -82,9 +84,10 @@ def main():
     ap.add_argument("--out", default="eval_split.json")
     ap.add_argument("--run", help=argparse.SUPPRESS)  # a child: one configuration
     ap.add_argument("--dir", help=argparse.SUPPRESS)
+    ap.add_argument("--scenes", type=int, default=8, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.run:
-        rec = run_one(args.run, pathlib.Path(args.dir))
+        rec = run_one(args.run, pathlib.Path(args.dir), args.scenes)
         (pathlib.Path(args.dir) / f"{args.run}.json").write_text(json.dumps(rec))
         return
 

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..geometry.quaternion import quat_to_matrix
+from ..utils.device_cache import as_device, device_constant
 
 
 class Gaussians(NamedTuple):
@@ -48,7 +49,13 @@ class GaussianAdapterConfig:
 
 
 def sh_degree_mask(sh_degree: int, device=None) -> torch.Tensor:
-    """Degree d scaled by 0.1 * 0.25^d (the DC term by 1)."""
+    """Degree d scaled by 0.1 * 0.25^d (the DC term by 1); one cached tensor
+    per degree and device."""
+    return _sh_degree_mask(sh_degree, as_device(device))
+
+
+@device_constant
+def _sh_degree_mask(sh_degree: int, device) -> torch.Tensor:
     mask = [1.0]
     for deg in range(1, sh_degree + 1):
         mask.extend([0.1 * 0.25**deg] * (2 * deg + 1))

@@ -15,12 +15,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import QuantLinear, linear_w8a8
+
 
 def _dtype(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.dtype:
     return dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
 
 
 def linear(mod: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    if isinstance(mod, QuantLinear):  # int8-prepared (ops/quant.quantize_tree)
+        return linear_w8a8(mod, x, dtype=dtype)
     dt = _dtype(x, mod.weight, dtype)
     b = None if mod.bias is None else mod.bias.to(dt)
     return F.linear(x.to(dt), mod.weight.to(dt), b)

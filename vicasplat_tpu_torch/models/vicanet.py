@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (
 
 from ..kernels.flash_attn import flash_attention
 from ..ops import rope as rope_lib
+from ..utils.device_cache import as_device, device_constant
 from .layers import Mlp, conv2d_patchify, layernorm, linear, mlp, sdpa
 
 
@@ -271,7 +272,14 @@ class PatchEmbed(nn.Module):
 def camera_blocked_causal_mask(T: int, n_tokens: int, first_token_full_attn: bool,
                                device=None) -> torch.Tensor:
     """(T, T * (1 + n_tokens)) bool mask of the camera queries over the fused
-    frame-major keys. True = attend."""
+    frame-major keys. True = attend. One cached mask per arguments and
+    device."""
+    return _camera_mask(T, n_tokens, first_token_full_attn, as_device(device))
+
+
+@device_constant
+def _camera_mask(T: int, n_tokens: int, first_token_full_attn: bool,
+                 device) -> torch.Tensor:
     frame = np.tril(np.ones((T, T), dtype=bool))
     if first_token_full_attn:
         frame[0, :] = True

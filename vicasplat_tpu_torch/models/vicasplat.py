@@ -18,6 +18,7 @@ from torch import nn
 from ..geometry import dual_quaternion as dqlib
 from ..geometry.quaternion import qnormalize
 from ..geometry.se3 import intrinsics_from_fov
+from ..utils.device_cache import device_constant
 from .adapter import GaussianAdapterConfig, adapt_gaussians, opacity_warmup_map
 from .heads import (
     DPT,
@@ -253,8 +254,14 @@ def vicasplat_forward(model: VicaSplat, context: dict, global_step: int = 0, *,
     )
 
 
+@device_constant
+def _input_stats(mean: tuple, std: tuple, dtype, device):
+    return (torch.tensor(mean, dtype=dtype, device=device),
+            torch.tensor(std, dtype=dtype, device=device))
+
+
 def normalize_images(images_01: torch.Tensor, cfg: VicaSplatConfig) -> torch.Tensor:
     """The encoder's data shim: [0, 1] images -> (x - input_mean) / input_std."""
-    mean = torch.tensor(cfg.input_mean, dtype=images_01.dtype, device=images_01.device)
-    std = torch.tensor(cfg.input_std, dtype=images_01.dtype, device=images_01.device)
+    mean, std = _input_stats(tuple(cfg.input_mean), tuple(cfg.input_std),
+                             images_01.dtype, images_01.device)
     return (images_01 - mean) / std

@@ -68,8 +68,8 @@ def _round_out(lo: torch.Tensor, hi: torch.Tensor):
     """float64 bounds -> float32 bounds rounded outward (toward -inf and
     +inf), as __double2float_rd and __double2float_ru give them."""
     lo_f, hi_f = lo.float(), hi.float()
-    lo_f = torch.where(lo_f.double() > lo, torch.nextafter(lo_f, lo_f.new_tensor(-np.inf)), lo_f)
-    hi_f = torch.where(hi_f.double() < hi, torch.nextafter(hi_f, hi_f.new_tensor(np.inf)), hi_f)
+    lo_f = torch.where(lo_f.double() > lo, torch.nextafter(lo_f, torch.full_like(lo_f, -np.inf)), lo_f)
+    hi_f = torch.where(hi_f.double() < hi, torch.nextafter(hi_f, torch.full_like(hi_f, np.inf)), hi_f)
     return lo_f, hi_f
 
 

@@ -126,3 +126,53 @@ def render(
                         near=near, cfg=cfg)
             for v in range(viewmats.shape[0])]
     return tuple(torch.stack(x) for x in zip(*outs))
+
+
+@torch.no_grad()
+def select_raster_config(
+    means: torch.Tensor,
+    cov6: torch.Tensor,
+    harmonics: torch.Tensor,
+    opacities: torch.Tensor,
+    viewmat: torch.Tensor,
+    intrinsics: torch.Tensor,
+    image_shape: tuple,
+    sh_degree: int,
+    base: RasterizeConfig = RasterizeConfig(),
+    dup_choices: tuple = (2, 3, 4, 6),
+    k_choices: tuple = (256, 512, 1024, 2048),
+    coverage_q: float = 0.99,
+    headroom: float = 1.1,
+) -> RasterizeConfig:
+    """Scene-adaptive static caps (dup_hw, max_per_tile), JAX `render.py:
+    154-221`: probe one view (projection and one binning pass at the largest
+    candidate caps), then take the smallest `dup_hw` whose window covers the
+    `coverage_q` quantile of the live splats' tile spans and the smallest
+    `max_per_tile` above the `coverage_q` occupancy quantile times
+    `headroom`. Each cap rises only where the base one truncates. The probe
+    runs eagerly and reads two numbers back to the host: call it outside
+    any captured program, once per scene."""
+    dup_max, k_max = max(dup_choices), max(k_choices)
+    splats = project_gaussians(means, cov6, harmonics, opacities, viewmat,
+                               intrinsics, image_shape, sh_degree)
+    live = splats.radius > 0
+    tiles_w = 2.0 * splats.radius / base.tile_px + 1.0
+    # the quantile over live splats only: dead ones (radius 0) span 1 tile
+    # and would dilute the tail the window must cover
+    span_sorted = torch.sort(torch.where(live, tiles_w, 0.0)).values
+    n_live = live.sum().clamp(min=1)
+    n = span_sorted.shape[0]
+    q_idx = (n - n_live + (coverage_q * (n_live - 1).float()).to(torch.int32)
+             ).clamp(0, n - 1)
+    span_q = float(span_sorted[q_idx])
+    payload = bin_splats(splats, image_shape, base.tile_px, (dup_max, dup_max), k_max)
+    occ = (payload[..., 5] > 0).sum(dim=1)
+    occ_q = float(torch.quantile(occ.float(), coverage_q))
+    dup = max(base.dup_hw)
+    if span_q > dup:  # escalate only when the base window truncates
+        dup = next((d for d in sorted(dup_choices) if d >= span_q), dup_max)
+    k = base.max_per_tile
+    k_need = occ_q * headroom
+    if k_need > k:  # escalate only when the base K overflows
+        k = next((c for c in sorted(k_choices) if c >= k_need), k_max)
+    return dataclasses.replace(base, dup_hw=(dup, dup), max_per_tile=k)

@@ -8,8 +8,9 @@ Two conventions, as in the JAX package:
 2. interleaved-pair n-D RoPE for the camera tokens (temporal, theta 30):
    frequencies repeated by 2, rotate = (-odd, even) pairs.
 
-Tables are built in float64 with numpy and stored float32; application runs
-in the input's dtype.
+Tables are built in float64 with numpy and stored float32, once per
+arguments and device (`utils/device_cache.py`); application runs in the
+input's dtype.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from ..utils.device_cache import as_device, device_constant
 
 
 def grid_positions(h: int, w: int) -> np.ndarray:
@@ -27,7 +30,17 @@ def grid_positions(h: int, w: int) -> np.ndarray:
 
 def make_rope_2d_tables(positions: np.ndarray, head_dim: int,
                         base: float = 100.0, device=None):
-    """(cos, sin) of shape (N, head_dim): [y half | x half], each [f, f]."""
+    """(cos, sin) of shape (N, head_dim): [y half | x half], each [f, f].
+    One cached pair per (positions, head_dim, base, device)."""
+    pos = np.ascontiguousarray(positions)
+    return _rope_2d_tables(pos.tobytes(), pos.shape, pos.dtype.str, head_dim,
+                           float(base), as_device(device))
+
+
+@device_constant
+def _rope_2d_tables(pos_bytes: bytes, shape: tuple, np_dtype: str, head_dim: int,
+                    base: float, device):
+    positions = np.frombuffer(pos_bytes, np.dtype(np_dtype)).reshape(shape)
     d_half = head_dim // 2
     inv_freq = 1.0 / (base ** (np.arange(0, d_half, 2, dtype=np.float64) / d_half))
 
@@ -55,7 +68,15 @@ def apply_rope_2d(x: torch.Tensor, cos: torch.Tensor,
 
 def make_rope_nd_tables(rope_dim_list: Sequence[int], sizes: Sequence[int],
                         theta: float = 10000.0, device=None):
-    """(cos, sin) of shape (prod(sizes), sum(rope_dim_list)), interleaved."""
+    """(cos, sin) of shape (prod(sizes), sum(rope_dim_list)), interleaved.
+    One cached pair per (dims, sizes, theta, device)."""
+    return _rope_nd_tables(tuple(int(d) for d in rope_dim_list),
+                           tuple(int(s) for s in sizes), float(theta),
+                           as_device(device))
+
+
+@device_constant
+def _rope_nd_tables(rope_dim_list: tuple, sizes: tuple, theta: float, device):
     grid = np.meshgrid(*[np.arange(s, dtype=np.float64) for s in sizes],
                        indexing="ij")
     cos_parts, sin_parts = [], []

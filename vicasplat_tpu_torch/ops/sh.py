@@ -1,10 +1,17 @@
 """Real spherical harmonics to degree 4 (port of vicasplat_tpu/ops/sh.py).
 
 color = clamp(SH(dir) . coeffs + 0.5, min=0), the 3DGS convention.
+`rotate_sh` turns coefficients with a rotation of their frame (the
+long-video path's re-basing, `streaming.py`).
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
+
+from ..utils.device_cache import device_constant
 
 _C0 = 0.28209479177387814
 _C1 = 0.4886025119029199
@@ -71,3 +78,48 @@ def eval_sh_colors(harmonics: torch.Tensor, dirs: torch.Tensor,
     n = (degree + 1) ** 2
     rgb = torch.einsum("...cd,...d->...c", harmonics[..., :n], basis)
     return torch.clamp(rgb + 0.5, min=0.0)
+
+
+def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """dirs (..., 3) unit vectors -> (..., (degree+1)^2) basis values."""
+    return torch.stack(sh_basis_cols(dirs, degree), dim=-1)
+
+
+def _sample_dirs(d_sh: int) -> np.ndarray:
+    """max(4 d_sh, 64) quasi-uniform unit vectors (golden-angle spiral),
+    float32, as JAX `rotate_sh` draws them."""
+    m = max(4 * d_sh, 64)
+    i = np.arange(m) + 0.5
+    phi = np.arccos(1 - 2 * i / m)           # polar
+    theta = np.pi * (1 + 5**0.5) * i         # golden-angle azimuth
+    return np.stack([np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta),
+                     np.cos(phi)], axis=-1).astype(np.float32)
+
+
+@device_constant
+def _refit_tables(degree: int, device):
+    """(sample dirs (M, 3), pinv(B(dirs)) (d_sh, M)) on `device`. The pseudo-
+    inverse depends only on the degree; it is taken once, in float32 on the
+    CPU (on a CUDA tensor `torch.linalg.pinv` would wait for the card)."""
+    d_sh = (degree + 1) ** 2
+    dirs = torch.from_numpy(_sample_dirs(d_sh))
+    pinv = torch.linalg.pinv(sh_basis(dirs, degree))
+    return dirs.to(device), pinv.to(device)
+
+
+def rotate_sh(harmonics: torch.Tensor, rotation: torch.Tensor,
+              degree: Optional[int] = None) -> torch.Tensor:
+    """Rotate SH coefficients by a 3x3 rotation (JAX `ops/sh.py:155-190`):
+    the rotated function's coefficients are refit on fixed sample
+    directions, pinv(B(dirs)) @ B(R^T dirs), a (d_sh, d_sh) Wigner-D.
+
+    harmonics (..., d_sh); rotation (3, 3) applied to the function's frame
+    (f'(x) = f(R^T x)).
+    """
+    d_sh = harmonics.shape[-1]
+    if degree is None:
+        degree = int(round(d_sh**0.5)) - 1
+    dirs, pinv = _refit_tables(degree, harmonics.device)
+    b_rot = sh_basis(dirs @ rotation.to(dirs.dtype), degree)  # R^T on rows
+    transfer = pinv @ b_rot
+    return torch.einsum("de,...e->...d", transfer, harmonics)
