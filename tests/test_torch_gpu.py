@@ -791,3 +791,110 @@ def test_int_mm_exact_at_flagship_linears(cuda, m, k, n):
     got = _int8_matmul(x, w)
     ref = (x.double() @ w.double().t()).to(torch.int32)  # exact below 2^53
     assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+def _op_cases(device):
+    """Each kernel's operator with its inputs on the card: (name, call,
+    tolerance of the CUDA result against the operator's CPU implementation
+    on the same inputs relative to the largest entry, 0 meaning equal)."""
+    g = torch.Generator(device=device).manual_seed(21)
+    q, k, v = _qkv((1, 130, 2, 64), 97, device, seed=3)
+    o, lse = torch.ops.vicasplat.flash_attn(q.cpu(), k.cpu(), v.cpu(), True)
+    o, lse = o.to(device), lse.to(device)
+    do = torch.randn(q.shape, generator=g, device=device).bfloat16()
+    payload = dense_payload(16, 64, 8, 4, seed=2, device=device)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=device)
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (33, 256), generator=g, device=device,
+                          dtype=torch.int32)
+    tail = _tail(device, 1, 9, 200, 64, 128, 24)
+    ops = torch.ops.vicasplat
+    return [
+        ("flash_attn", lambda *x: ops.flash_attn(*x, True), (q, k, v), FLASH_TOL),
+        ("flash_attn_bwd", ops.flash_attn_bwd, (q, k, v, o, lse, do), FLASH_TOL),
+        ("composite", lambda p, b: ops.composite(p, b, 32, 32, 8, 32), (payload, bg),
+         COMPOSITE_TOL),
+        ("dpt_tail", ops.dpt_tail, tail, TAIL_TOL),
+        ("bitonic_topk", lambda w: ops.bitonic_topk(w, 16), (words,), 0.0),
+    ]
+
+
+def _flat(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def test_custom_ops_match_plain_and_replay_under_capture(cuda):
+    """Each kernel's custom operator on CUDA tensors against its plain
+    version (the operator's CPU implementation on the same inputs); then
+    captured in a CUDA graph, whose replay equals the eager call bit for bit
+    and whose capture counted the kernel's launches once."""
+    from vicasplat_tpu_torch.kernels import COUNTERS, launch_counts
+
+    for name, call, args, tol in _op_cases(cuda):
+        eager = _flat(call(*args))
+        plain = _flat(call(*(a.cpu() for a in args)))
+        for i, (a, b) in enumerate(zip(eager, plain)):
+            assert a.device.type == "cuda" and a.shape == b.shape, (name, i)
+            if tol == 0.0:
+                assert torch.equal(a.cpu(), b), name
+            else:
+                err = ((a.float().cpu() - b.float()).abs().max()
+                       / b.float().abs().max()).item()
+                assert err < tol, (name, i, err)
+        torch.cuda.synchronize()
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = _flat(call(*args))
+        after = launch_counts()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, eager):
+            assert torch.equal(a, b), name
+        moved = {k for k in COUNTERS if after[k] != before[k]}
+        assert moved == {name} and after[name] == before[name] + 1, (name, moved)
+
+
+def test_exported_tiny_program_launches_k1_f32(cuda, tmp_path):
+    """A float32 artifact exported on the CPU and moved to the card
+    (`load_exported(..., device="cuda")`) launches K1's float32 route once a
+    decoder block, by torch.profiler's records and by the counter, and
+    agrees with the CPU engine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vicasplat_tpu_torch import export
+    from vicasplat_tpu_torch.models import GaussianAdapterConfig, VicaNetConfig, VicaSplatConfig
+    from vicasplat_tpu_torch.serving import InferenceEngine
+
+    cfg = VicaSplatConfig(
+        backbone=VicaNetConfig(img_size=32, enc_embed_dim=64, enc_depth=2, enc_num_heads=4,
+                               dec_embed_dim=48, dec_depth=4, dec_num_heads=4),
+        gaussian_adapter=GaussianAdapterConfig(sh_degree=1))
+    eng = InferenceEngine(cfg, dtype=torch.float32, device="cpu")
+    export.save_exported(tmp_path / "t.pt2", export.export_reconstruct(
+        eng, 1, 3, 32, 32, with_intrinsics=True))
+    ep = export.load_exported(tmp_path / "t.pt2", device="cuda")
+    images = torch.rand(1, 3, 32, 32, 3, generator=torch.Generator().manual_seed(4))
+    K = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]]).expand(1, 3, 3, 3)
+    w = {k: v.to(cuda) for k, v in export.weights(eng).items()}
+    prog = ep.module()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # float32 convs in full float32
+    try:
+        with torch.no_grad():
+            prog(w, images.to(cuda), K.to(cuda))
+            before = flash_attention.f32_launches
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = prog(w, images.to(cuda), K.to(cuda))
+                torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert flash_attention.f32_launches == before + 4
+    records = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "f32_fwd_kernel" in e.key)
+    assert records == 4
+    ref = eng.reconstruct(images, K)
+    for name in ("means", "opacities", "harmonics"):
+        a, b = out["gaussians"][name].cpu(), getattr(ref.gaussians, name)
+        assert ((a - b).abs().max() / b.abs().max()).item() < TINY_TOL, name
+    assert (out["poses"].cpu() - ref.poses).abs().max().item() < TINY_TOL

@@ -57,7 +57,12 @@ def test_port_files_exist():
                 "visualization/layout", "visualization/colormaps",
                 "visualization/bitmap_font",
                 # the serving path's
-                "serving", "streaming", "ops/quant", "utils/device_cache"):
+                "serving", "streaming", "ops/quant", "utils/device_cache",
+                # the demo flow's, the visual outputs' and the export's
+                "demo", "export", "utils/ply", "visualization/camera_trajectory",
+                "visualization/video_render", "visualization/glb",
+                "visualization/drawing", "visualization/validation_in_3d",
+                "visualization/viewer", "visualization/viewer_server"):
         assert f"vicasplat_tpu_torch/{mod}.py" in names, mod
 
 

@@ -58,11 +58,11 @@ def run_one(name: str, out_dir: pathlib.Path, scenes: int = 8) -> dict:
     if name.startswith("origin"):
         chunk = 64 if name == "origin64" else None
 
-        def plain(payload, image_shape, tile_px, background, c):
+        def plain(payload, background, image_shape, tile_px, c):
             return composite_reference(payload, image_shape, tile_px, background,
                                        chunk or c)
 
-        patches = [mock.patch.object(pallas_composite, "composite_launch", plain),
+        patches = [mock.patch.object(pallas_composite, "_forward", plain),
                    mock.patch.object(tiles, "bitonic_topk", topk_reference)]
     for p in patches:
         p.start()

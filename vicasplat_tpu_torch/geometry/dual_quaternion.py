@@ -1,6 +1,8 @@
 """Dual-quaternion rigid motions (port of
-vicasplat_tpu/geometry/dual_quaternion.py, the parts the camera decode, se3
-and the camera loss use). The 8-vector layout is [q_r(xyzw), q_d(xyzw)].
+vicasplat_tpu/geometry/dual_quaternion.py): the camera decode's, se3's and
+the camera loss's algebra, and the screw power and ScLERP of the camera
+trajectories. The 8-vector layout is [q_r(xyzw), q_d(xyzw)]. Batched over
+leading dims; `exponent` and `t` broadcast against them.
 """
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ from typing import NamedTuple
 
 import torch
 
-from .quaternion import qconj, qmul, qnorm, quat_to_matrix
+from .quaternion import matrix_to_quat, qconj, qmul, qnorm, quat_to_matrix
 
 
 class DualQuaternion(NamedTuple):
@@ -69,3 +71,70 @@ def homogeneous_matrix(dq: DualQuaternion) -> torch.Tensor:
     bottom = torch.zeros_like(top[..., :1, :])
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def from_translation(t: torch.Tensor) -> DualQuaternion:
+    q = torch.zeros(*t.shape[:-1], 4, dtype=t.dtype, device=t.device)
+    q[..., 3] = 1.0
+    return from_quat_pose(torch.cat([q, t], dim=-1))
+
+
+def dual_number_conjugate(dq: DualQuaternion) -> DualQuaternion:
+    return DualQuaternion(dq.qr, -dq.qd)
+
+
+def combined_conjugate(dq: DualQuaternion) -> DualQuaternion:
+    return DualQuaternion(qconj(dq.qr), -qconj(dq.qd))
+
+
+def inverse(dq: DualQuaternion) -> DualQuaternion:
+    """Inverse of a *unit* dual quaternion (|q_r| = 1)."""
+    qr_inv = qconj(dq.qr)
+    return DualQuaternion(qr_inv, -qmul(qmul(qr_inv, dq.qd), qr_inv))
+
+
+def from_matrix(m: torch.Tensor) -> DualQuaternion:
+    """4x4 homogeneous transform -> unit dual quaternion."""
+    q = matrix_to_quat(m[..., :3, :3])
+    return from_quat_pose(torch.cat([q, m[..., :3, 3]], dim=-1))
+
+
+def dqpow(dq: DualQuaternion, exponent) -> DualQuaternion:
+    """Screw power sigma^e (for ScLERP), branchless as in JAX: the screw
+    parameters (theta, d, axis, moment) scaled by `exponent`, and a pure
+    translation where |sin(theta / 2)| < 1e-6. The small branch's divisor is
+    replaced by 1 before dividing, so the branch not taken holds finite
+    values and `where` passes no NaN (nor a NaN gradient) through."""
+    w = torch.clamp(dq.qr[..., 3:4], -1.0, 1.0)
+    theta = 2.0 * torch.arccos(w)
+    sin_half = torch.sin(theta / 2.0)
+    small = torch.abs(sin_half) < 1e-6
+    safe_sin = torch.where(small, torch.ones_like(sin_half), sin_half)
+
+    s0 = dq.qr[..., :3] / safe_sin
+    d = -2.0 * dq.qd[..., 3:4] / safe_sin
+    se = (dq.qd[..., :3] - s0 * d / 2.0 * torch.cos(theta / 2.0)) / safe_sin
+
+    e = exponent
+    half = e * theta / 2.0
+    qr = torch.cat([torch.sin(half) * s0, torch.cos(half)], dim=-1)
+    qd = torch.cat([e * d / 2.0 * torch.cos(half) * s0 + torch.sin(half) * se,
+                    -e * d / 2.0 * torch.sin(half)], dim=-1)
+    fallback = from_translation(e * translation(dq))
+    return DualQuaternion(torch.where(small, fallback.qr, qr),
+                          torch.where(small, fallback.qd, qd))
+
+
+def sclerp(start: DualQuaternion, stop: DualQuaternion, t) -> DualQuaternion:
+    """Screw linear interpolation start * (start^-1 stop)^t, on the shortest
+    path: `start` is negated (the same motion) where the real parts lie in
+    opposite hemispheres."""
+    flip = qmul(start.qr, stop.qr)[..., 3:4] < 0
+    s = DualQuaternion(torch.where(flip, -start.qr, start.qr),
+                       torch.where(flip, -start.qd, start.qd))
+    return dqmul(s, dqpow(dqmul(inverse(s), stop), t))
+
+
+def transform_point(dq: DualQuaternion, p: torch.Tensor) -> torch.Tensor:
+    """Apply the rigid motion: p' = R p + t."""
+    return torch.einsum("...ij,...j->...i", quat_to_matrix(dq.qr), p) + translation(dq)

@@ -12,6 +12,10 @@ of every uint32 key of the JAX package.
 `bitonic_topk_pruned_walk` walks the kernel's pruned network (the same
 stages, directions and prunes) on the CPU, so that its order can be held
 against the JAX package's network where no card exists.
+
+`bitonic_topk` calls the custom operator `torch.ops.vicasplat.bitonic_topk`
+(`torch.library.custom_op`): the kernel on a CUDA tensor, `topk_reference`
+on a CPU one, and a fake implementation for `torch.export`.
 """
 from __future__ import annotations
 
@@ -109,10 +113,13 @@ def bitonic_topk(words: torch.Tensor, keep: int) -> torch.Tensor:
     block's shared memory); a CPU tensor takes `topk_reference`.
     """
     _check(words, keep)
-    if words.device.type == "cpu":
-        return topk_reference(words, keep)
-    if words.device.type != "cuda":
-        raise ValueError(f"bitonic_topk does not run on {words.device}")
+    return torch.ops.vicasplat.bitonic_topk(words, keep)
+
+
+@torch.library.custom_op("vicasplat::bitonic_topk", mutates_args=(),
+                         device_types="cuda")
+def bitonic_topk_op(words: torch.Tensor, keep: int) -> torch.Tensor:
+    """The kernel's launch: (rows, keep) int32."""
     rows, m = words.shape
     if m * 4 > MAX_SMEM_BYTES:
         raise ValueError(f"row of {m} words exceeds {MAX_SMEM_BYTES} bytes of shared memory")
@@ -127,6 +134,16 @@ def bitonic_topk(words: torch.Tensor, keep: int) -> torch.Tensor:
         raise RuntimeError(f"bitonic_topk launch failed: cudaError {rc}")
     bitonic_topk.launches += 1
     return out
+
+
+@bitonic_topk_op.register_kernel("cpu")
+def _(words, keep):
+    return topk_reference(words, keep).contiguous()
+
+
+@bitonic_topk_op.register_fake
+def _(words, keep):
+    return words.new_empty(words.shape[0], keep)
 
 
 bitonic_topk.launches = 0  # kernel launches since the last reset

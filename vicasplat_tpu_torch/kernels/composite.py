@@ -6,6 +6,11 @@ Replaces the forward of the Pallas TPU kernel
 version, the autograd function and the device dispatch around it are in
 `ops/rasterize/pallas_composite.py`, as the JAX package keeps them beside
 its kernel there.
+
+The launch is also the custom operator `torch.ops.vicasplat.composite`
+(`torch.library.custom_op`): the kernel on a CUDA payload, the plain
+version on a CPU one, and a fake implementation that gives `torch.export`
+the output shapes.
 """
 from __future__ import annotations
 
@@ -75,3 +80,26 @@ def composite_launch(payload: torch.Tensor, image_shape: tuple, tile_px: int,
 
 
 composite_launch.launches = 0  # kernel launches since the last reset
+
+
+@torch.library.custom_op("vicasplat::composite", mutates_args=(), device_types="cuda")
+def composite_op(payload: torch.Tensor, background: torch.Tensor, height: int,
+                 width: int, tile_px: int,
+                 chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(rgb (H, W, 3), depth (H, W), alpha (H, W)) of a (tiles, K, 16) payload."""
+    return composite_launch(payload, (height, width), tile_px, background, chunk)
+
+
+@composite_op.register_kernel("cpu")
+def _(payload, background, height, width, tile_px, chunk):
+    # imported here: ops/rasterize/pallas_composite.py imports this module
+    from ..ops.rasterize.pallas_composite import composite_reference
+
+    return tuple(x.contiguous() for x in composite_reference(
+        payload, (height, width), tile_px, background, chunk))
+
+
+@composite_op.register_fake
+def _(payload, background, height, width, tile_px, chunk):
+    return (payload.new_empty(height, width, 3), payload.new_empty(height, width),
+            payload.new_empty(height, width))

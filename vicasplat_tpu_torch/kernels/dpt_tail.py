@@ -12,6 +12,11 @@ w2 (O, F, 1, 1) or (O, F); both frameworks compute cross-correlation.
 of 128 pixels, 64-channel chunks, 9 taps from a shifted window with zeros
 outside the image), so that the CPU tests check the layout and edge logic
 the kernel relies on.
+
+The forward is also the custom operator `torch.ops.vicasplat.dpt_tail`
+(`torch.library.custom_op`): the kernel on CUDA tensors (the repack runs
+inside it, on the weights it is given), the plain version on CPU ones, and
+a fake implementation that gives `torch.export` the output shape.
 """
 from __future__ import annotations
 
@@ -200,18 +205,14 @@ def shift_probe(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class _DptTail(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU). Backward: a
-    recompute through the plain version, as the JAX package's custom_vjp
-    does."""
+    """Forward: the operator, so the kernel (CUDA) or the plain version
+    (CPU). Backward: a recompute through the plain version, as the JAX
+    package's custom_vjp does."""
 
     @staticmethod
     def forward(ctx, a, m, w1, b1, w2, b2):
         ctx.save_for_backward(a, m, w1, b1, w2, b2)
-        if a.device.type == "cpu":
-            return dpt_tail_reference(a, m, w1, b1, w2, b2)
-        if a.device.type != "cuda":
-            raise ValueError(f"fused_dpt_tail does not run on {a.device}")
-        return _launch(a, m, w1, b1, w2, b2)
+        return torch.ops.vicasplat.dpt_tail(a, m, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, g):
@@ -235,9 +236,31 @@ def fused_dpt_tail(a: torch.Tensor, m: Optional[torch.Tensor], w1: torch.Tensor,
 
     A CUDA tensor launches the kernel (bf16 activations and weights, C % 64
     == 0, F % 128 == 0, any O); a CPU tensor takes `dpt_tail_reference`.
+    Without a gradient the operator is called directly.
     """
     _check(a, m, w1, b1, w2, b2)
-    return _DptTail.apply(a, m, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (a, m, w1, b1, w2, b2)):
+        return _DptTail.apply(a, m, w1, b1, w2, b2)
+    return torch.ops.vicasplat.dpt_tail(a, m, w1, b1, w2, b2)
 
 
 fused_dpt_tail.launches = 0  # kernel launches since the last reset
+
+
+@torch.library.custom_op("vicasplat::dpt_tail", mutates_args=(), device_types="cuda")
+def dpt_tail_op(a: torch.Tensor, m: Optional[torch.Tensor], w1: torch.Tensor,
+                b1: Optional[torch.Tensor], w2: torch.Tensor,
+                b2: Optional[torch.Tensor]) -> torch.Tensor:
+    """(N, H, W, O) bf16 through the kernel."""
+    return _launch(a, m, w1, b1, w2, b2)
+
+
+@dpt_tail_op.register_kernel("cpu")
+def _(a, m, w1, b1, w2, b2):
+    return dpt_tail_reference(a, m, w1, b1, w2, b2).contiguous()
+
+
+@dpt_tail_op.register_fake
+def _(a, m, w1, b1, w2, b2):
+    return a.new_empty(*a.shape[:3], w2.shape[0])

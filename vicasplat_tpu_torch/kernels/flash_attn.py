@@ -14,8 +14,15 @@ CUDA tensor, chosen by its dtype:
 Any other dtype or head dim raises. A CUDA tensor that needs a gradient
 runs through `_FlashAttention`: the forward kernel also writes each row's
 log-sum-exp (natural log, float32 (B, H, Sq)), and the backward kernels
-form dQ, dK and dV from it. A CPU tensor takes `attention_reference`, which
-autograd differentiates.
+form dQ, dK and dV from it. A CPU tensor that needs a gradient takes
+`attention_reference`, which autograd differentiates.
+
+Both kernels are also custom operators, `torch.ops.vicasplat.flash_attn`
+and `torch.ops.vicasplat.flash_attn_bwd` (`torch.library.custom_op`): on a
+CUDA tensor they launch the kernels, on a CPU tensor they run the plain
+versions, and their fake implementations give `torch.export` the output
+shapes without touching data. Every call without a gradient goes through
+the operator, so an exported program launches the kernel wherever it runs.
 """
 from __future__ import annotations
 
@@ -87,10 +94,10 @@ def _check_shapes(q, k, v):
         raise ValueError("q, k and v lie on different devices")
 
 
-def _check_cuda(**tensors):
+def _check_cuda(aligned=True, **tensors):
     """Raise unless the tensors are what one of the two routes takes: all
     bf16 at head dim 64, or all float32 at head dim 1..128; contiguous and
-    16-byte aligned."""
+    (unless `aligned` is False, for tensors without data) 16-byte aligned."""
     dtype = next(iter(tensors.values())).dtype
     for name, x in tensors.items():
         if x.dtype != dtype:
@@ -108,7 +115,7 @@ def _check_cuda(**tensors):
                             "(head dim 64) or float32 (head dim <= 128)")
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-        if x.data_ptr() % 16:
+        if aligned and x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
 
 
@@ -181,15 +188,15 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
-        out, lse = _forward(q, k, v, with_lse=True)
+        out, lse = torch.ops.vicasplat.flash_attn(q, k, v, True)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return flash_attention_backward(q, k, v, o, lse,
-                                        do.to(q.dtype).contiguous())
+        return torch.ops.vicasplat.flash_attn_bwd(q, k, v, o, lse,
+                                                  do.to(q.dtype).contiguous())
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -199,21 +206,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     A CUDA tensor launches the forward kernel of its route (bf16 at D = 64,
     or float32 at D <= 128; contiguous) and, when a gradient is needed, the
     backward kernels in the backward; anything else raises. A CPU tensor
-    takes `attention_reference`, cast back to q's dtype, differentiable by
-    autograd.
+    takes `attention_reference`, cast back to q's dtype: through the
+    operator without a gradient, differentiable by autograd with one.
     """
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v).to(q.dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention does not run on {q.device}")
-    _check_cuda(q=q, k=k, v=v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if q.device.type == "cpu":
+            return attention_reference(q, k, v).to(q.dtype)
         return _FlashAttention.apply(q, k, v)
-    return _forward(q, k, v, with_lse=False)[0]
+    return torch.ops.vicasplat.flash_attn(q, k, v, False)[0]
 
 
 flash_attention.launches = 0               # bf16 forward kernel launches
 flash_attention.f32_launches = 0           # float32 forward kernel launches
 flash_attention_backward.launches = 0      # bf16 backward calls (3 kernels each)
 flash_attention_backward.f32_launches = 0  # float32 backward calls (3 kernels each)
+
+
+# ---- the custom operators ----
+
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    """The lse output of a call that did not ask for it: empty."""
+    return q.new_empty(0, dtype=torch.float32)
+
+
+@torch.library.custom_op("vicasplat::flash_attn", mutates_args=(), device_types="cuda")
+def flash_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse), lse (B, H, Sq) float32 when `with_lse`, else empty."""
+    _check_cuda(q=q, k=k, v=v)
+    out, lse = _forward(q, k, v, with_lse)
+    return out, _no_lse(q) if lse is None else lse
+
+
+# the CPU implementations return contiguous tensors, as the fake ones and
+# the kernels do, so that a trace's strides hold at run time
+
+@flash_attn_op.register_kernel("cpu")
+def _(q, k, v, with_lse):
+    out = attention_reference(q, k, v).to(q.dtype).contiguous()
+    return out, attention_lse_reference(q, k) if with_lse else _no_lse(q)
+
+
+@flash_attn_op.register_fake
+def _(q, k, v, with_lse):
+    if q.device.type == "cuda":
+        _check_cuda(aligned=False, q=q, k=k, v=v)
+    B, Sq, H, _ = q.shape
+    lse = q.new_empty(B, H, Sq, dtype=torch.float32) if with_lse else _no_lse(q)
+    return q.new_empty(q.shape), lse
+
+
+@torch.library.custom_op("vicasplat::flash_attn_bwd", mutates_args=(),
+                         device_types="cuda")
+def flash_attn_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor,
+                      do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) in q's dtype."""
+    return flash_attention_backward(q, k, v, o, lse, do)
+
+
+@flash_attn_bwd_op.register_kernel("cpu")
+def _(q, k, v, o, lse, do):
+    return tuple(x.to(q.dtype).contiguous()
+                 for x in attention_backward_reference(q, k, v, o, lse, do))
+
+
+@flash_attn_bwd_op.register_fake
+def _(q, k, v, o, lse, do):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)

@@ -213,12 +213,19 @@ def _stop_profiler(prof, device, out_dir, steps):
 def _validation_visuals(cfg, model, dm, global_step, writer, dtype="bfloat16"):
     """One val example through the forward and the render, and its
     comparison grid (context / target / rendered / depth) saved as
-    `<output_dir>/val/step_<7 digits>/comparison.png` and logged (JAX
-    `main.py:216-293`). Returns the grid, or None without a val split."""
+    `<output_dir>/val/step_<7 digits>/comparison.png` and logged; beside it
+    the scene's near-orthographic projections (`projections.png`), the
+    context cameras against the predicted ones (`cameras.png`) and a video
+    along the predicted poses (`interpolation.mp4`, 15 fps, 6 steps a
+    segment), each best-effort as in JAX `main.py:216-293`. Returns the
+    grid, or None without a val split."""
     from .decoder.splatting import decoder_forward
     from .models import vicasplat_forward
-    from .utils.image_io import save_image, vis_depth_map
+    from .utils.image_io import save_image, save_video, vis_depth_map
+    from .visualization.drawing import draw_cameras_figure
     from .visualization.layout import add_label, hcat, vcat
+    from .visualization.validation_in_3d import render_projections
+    from .visualization.video_render import render_video_interpolation
 
     batch = next(iter(dm.val_dataloader()), None)
     if batch is None:
@@ -245,8 +252,27 @@ def _validation_visuals(cfg, model, dm, global_step, writer, dtype="bfloat16"):
     if writer is not None:
         writer.add_image("val/comparison", np.clip(grid, 0, 1).transpose(2, 0, 1),
                          global_step)
-    print("val: the orthographic projections, the camera figure and the "
-          "interpolation video are not ported yet (ROADMAP.md §1 items 3 and 7)")
+
+    # the visuals below are observability, best-effort as in JAX: a failure
+    # is printed and the run goes on
+    try:
+        proj = render_projections(out["gaussians"], dec_cfg=cfg.decoder)
+        save_image(hcat(*proj), outdir / "projections.png")
+    except Exception as e:
+        print(f"val projections skipped: {e}")
+    try:
+        save_image(draw_cameras_figure(host(ctx["extrinsics"][0]),
+                                       host(out["gaussian_camera_extrins"][0])),
+                   outdir / "cameras.png")
+    except Exception as e:
+        print(f"val camera figure skipped: {e}")
+    try:
+        frames = render_video_interpolation(
+            out["gaussians"], out["gaussian_camera_extrins"][0],
+            ctx["intrinsics"][0], (h, w), steps_per_segment=6, dec_cfg=cfg.decoder)
+        save_video(frames, outdir / "interpolation.mp4", fps=15)
+    except Exception as e:
+        print(f"val video skipped: {e}")
     return grid
 
 

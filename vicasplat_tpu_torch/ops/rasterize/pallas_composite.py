@@ -2,8 +2,9 @@
 vicasplat_tpu/ops/rasterize/pallas_composite.py).
 
 `"pallas"` names the hand-written CUDA kernel in this package, as in
-`RasterizeConfig.backend`. `composite_tiles_kernel` launches K2
-(`kernels/composite.py`) for a CUDA payload and takes its plain version,
+`RasterizeConfig.backend`. `composite_tiles_kernel` calls K2's operator
+(`torch.ops.vicasplat.composite`, `kernels/composite.py`), which launches
+the kernel for a CUDA payload and takes its plain version,
 `composite_reference`, for a CPU one. As in the JAX package, alpha is
 1 - T_final, and the backward recomputes through the plain matmul
 compositing (`tiles.composite_tiles`), whose gradients are the exact ones,
@@ -19,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...kernels.composite import PAYLOAD_COLS, composite_launch
+from ...kernels.composite import PAYLOAD_COLS
 from .tiles import _composite_group, _tile_pixel_centers, composite_tiles, stitch_tiles
 
 
@@ -190,9 +191,10 @@ def _check(payload, image_shape, background, tile_px, chunk):
 
 
 def _forward(payload, background, image_shape, tile_px, chunk):
-    if payload.device.type == "cpu":
-        return composite_reference(payload, image_shape, tile_px, background, chunk)
-    return composite_launch(payload, image_shape, tile_px, background, chunk)
+    """K2's operator: the kernel on a CUDA payload, `composite_reference` on
+    a CPU one."""
+    H, W = image_shape
+    return torch.ops.vicasplat.composite(payload, background, H, W, tile_px, chunk)
 
 
 class _Composite(torch.autograd.Function):

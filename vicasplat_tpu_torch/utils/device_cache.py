@@ -10,6 +10,10 @@ hands the same tensor back afterwards, so a captured program only reads it.
 The tensors are made outside inference mode and autograd, so that a first
 call under `torch.inference_mode()` leaves tensors a later training step may
 save for its backward. Callers must not write into them.
+
+Under a trace (`torch.export`) the function runs uncached: the tensors it
+makes there are the trace's fake tensors, which the cache must never hand
+to a later eager call; the trace records them as the program's constants.
 """
 from __future__ import annotations
 
@@ -27,7 +31,13 @@ def device_constant(fn):
         with torch.inference_mode(False), torch.no_grad():
             return fn(*args)
 
-    return functools.wraps(fn)(build)
+    @functools.wraps(fn)
+    def cached(*args):
+        if torch.compiler.is_compiling():
+            return fn(*args)
+        return build(*args)
+
+    return cached
 
 
 def as_device(device) -> torch.device:

@@ -1,5 +1,5 @@
-"""3DGS PLY export, binary little-endian (a numpy copy of
-vicasplat_tpu/utils/ply.py:15-91): opacity pruning at 0.005, xyzw -> wxyz
+"""3DGS PLY export and its reader, binary little-endian (a numpy copy of
+vicasplat_tpu/utils/ply.py:15-119): opacity pruning at 0.005, xyzw -> wxyz
 quaternions, f_dc / f_rest split, log scales and inverse-sigmoid
 opacities, the standard layout of 3DGS viewers."""
 from __future__ import annotations
@@ -85,3 +85,33 @@ def export_ply(
         f.write(header.encode("ascii"))
         f.write(data.tobytes())
     return int(n)
+
+
+def read_ply(path: str | pathlib.Path) -> dict:
+    """The layout above -> {means, scales, rotations (xyzw), harmonics,
+    opacities} (round trips, the viewer)."""
+    with open(path, "rb") as f:
+        header = b""
+        while not header.endswith(b"end_header\n"):
+            header += f.readline()
+        lines = header.decode("ascii").splitlines()
+        n = int(next(l for l in lines if l.startswith("element vertex")).split()[-1])
+        fields = [l.split()[-1] for l in lines if l.startswith("property")]
+        data = np.frombuffer(f.read(), dtype="<f4").reshape(n, len(fields))
+    cols = {name: data[:, i] for i, name in enumerate(fields)}
+    d_rest = sum(1 for f in fields if f.startswith("f_rest_"))
+    d_sh = 1 + d_rest // 3
+    sh = np.zeros((n, 3, d_sh), np.float32)
+    for c in range(3):
+        sh[:, c, 0] = cols[f"f_dc_{c}"]
+    rest = np.stack([cols[f"f_rest_{i}"] for i in range(d_rest)], axis=1)
+    sh[:, :, 1:] = rest.reshape(n, 3, d_sh - 1)
+    return {
+        "means": np.stack([cols["x"], cols["y"], cols["z"]], axis=1),
+        "scales": np.exp(np.stack([cols[f"scale_{i}"] for i in range(3)], axis=1)),
+        "rotations": np.stack([cols[f"rot_{i}"] for i in range(4)], axis=1)[
+            :, [1, 2, 3, 0]
+        ],  # wxyz -> xyzw
+        "harmonics": sh,
+        "opacities": 1 / (1 + np.exp(-cols["opacity"])),
+    }
