@@ -68,8 +68,8 @@ Phases, each printing lines with their seconds:
             repository's trained checkpoint
             (outputs/synthetic_pose/ckpt_committed/weights_latest.npz, the
             synthetic_pose model: 64^2, encoder 384 x 6, decoder 384 x 4,
-            linear heads) over the first 4 of the 8 held-out scenes (cut to
-            pay for demo and export) with 100 pose-alignment steps and the
+            linear heads) over the first 2 of the 8 held-out scenes (cut to
+            pay for demo, export and re10k) with 100 pose-alignment steps and the
             default render: each scene's PSNR, SSIM and ATE, the means held
             to the JAX package's of the same scenes
             (vicasplat_tpu_torch/evaluation/reference_synthetic_pose_96k.json,
@@ -90,7 +90,9 @@ Phases, each printing lines with their seconds:
             replay; medians of 5 after 2 warm-ups, eager and replayed, the
             busy share of a replayed request, throughput() and the graph
             pools; POST /reconstruct on loopback equal to a direct call, a
-            jpeg_data request answered 501; the quantized engine (W8A8,
+            jpeg_data request (the frames by the port's JPEG encoder) equal
+            to a direct call on the port's decode of them, a corrupt one
+            answered 400; the quantized engine (W8A8,
             center head float) against the bf16 one, and one flagship
             linear's torch._int_mm beside its bf16 matmul;
   demo      the port's demo CLI (vicasplat_tpu_torch.demo.main(argv)) at the
@@ -115,8 +117,9 @@ Phases, each printing lines with their seconds:
             moved to the card launches K1's float32 route; trace seconds,
             artifact and weight bytes;
   eval-accel the same run with decoder.rasterize.backend=pallas and
-            binning=origin, on the first 4 of eval's 8 scenes (each scene
-            is held on its own; the cut pays for the serving phases): K2
+            binning=origin, on the first 2 of eval's 8 scenes (each scene
+            is held on its own; the cut pays for the serving phases and
+            re10k): K2
             and K4 launches exactly per scene (once a view in each of the
             101 renders), each scene's scores held to eval's. Beside it, two child processes
             (vicasplat_tpu_torch/diagnostics/eval_split.py) run the same
@@ -173,6 +176,21 @@ Phases, each printing lines with their seconds:
             (parameters, moments, step count); the train mode resumed from
             step 2 writing a weights-only snapshot; the test mode on that
             snapshot (one scene, 10 alignment steps).
+  re10k     the RE10K data path: 4 scenes of the synthetic generator at
+            360x640 (160 frames each, 65,536 Gaussians) written as PNG frames
+            and cameras.npz, converted to .torch chunks by the port's
+            convert_scripts CLI (its JPEG encoder at quality 95), the port's
+            decoder held to the rendered frames in luma (RE10K_PSNR_MIN), a 2-view
+            index by the index_generator CLI (its band printed, at least one
+            scene indexed) extended to 8 context views by extend_index; then
+            main.py's train mode of re10k_8view from those chunks at the
+            flagship's widths, 2 steps of batch 2 with 8 context and 12
+            target views (K1 24 forward and 12 backward launches a step,
+            finite losses, the loader's seconds a batch beside the step
+            time), and its test mode on the first indexed scene with the
+            2-step checkpoint in the accelerator configuration, 10 alignment
+            steps: K1 12, K3 1, K2 and K4 once a rendered view, finite PSNR,
+            SSIM and ATE, the files written.
 Then a JSON line of kernels, the nvidia-smi line, and the result line.
 Float32 convolutions run in full float32 (cudnn.allow_tf32 = False), since
 K3's plain version is the reference.
@@ -202,9 +220,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # (tools/jax_eval_reference.py)
 EVAL_NPZ = "outputs/synthetic_pose/ckpt_committed/weights_latest.npz"
 EVAL_REF = "vicasplat_tpu_torch/evaluation/reference_synthetic_pose_96k.json"
-# eval's held-out scenes: the first 4 of the split's 8 (cut to pay for the
-# demo and export phases). eval_pose still scores all 8
-EVAL_SCENES = 4
+# eval's held-out scenes: the first 2 of the split's 8 (cut to 4 to pay for
+# the demo and export phases, to 2 for re10k). eval_pose still scores all 8
+EVAL_SCENES = 2
 # the port's means over eval's scenes against the JAX reference's means of
 # the same scenes (its largest per-scene gap was 0.1015 dB, 0.00516 SSIM and
 # 0.0032 ATE on an H100, so any subset's mean stays within these):
@@ -224,9 +242,9 @@ POSE_TOL = {"ate": 0.01, "rpe_trans": 0.01, "rpe_rot": 0.1, "auc@5": 0.01,
 # to 0.0112 dB and 0.00174 SSIM, K2 alone by up to 0.0128 dB and 0.00039
 # SSIM (vicasplat_tpu_torch/diagnostics/eval_split.py)
 ACCEL_TOL = {"psnr": 0.05, "ssim": 0.002, "ate": 0.002}
-# eval-accel's held-out scenes: eval's 4. It holds each scene on its own, so
-# the cut loses no check; it pays for the serving phases
-ACCEL_SCENES = 4
+# eval-accel's held-out scenes: eval's 2. It holds each scene on its own, so
+# the cut loses no check; it pays for the serving phases and re10k
+ACCEL_SCENES = 2
 # eval-accel against eval-origin (the same binning, K2 and K4 swapped for
 # their plain versions), per scene: at most twice as far as the plain
 # compositing summed in chunks of 64 rows is from the same in chunks of 128
@@ -313,6 +331,28 @@ TRAIN_SHAPES = ((2, 12), (2, 4), (1, 4))
 # (the streaming route); the flagship's decoder blocks
 DEMO_FRAME_HW = (320, 480)
 DEMO_SHORT, DEMO_LONG = 8, 12
+# re10k: scenes of the synthetic generator at RE10K's frame size, enough
+# frames for the 8-view index, written as PNG frames and cameras and
+# converted to chunks by the port; square pixels (the vertical focal length
+# scaled by W / H), as RE10K's cameras have. 4 scenes make 2 batches of 2,
+# one a train step (the loader, as JAX's, restarts each pass over the
+# chunks with the same seed, so a pass of one batch would repeat it)
+RE10K_HW = (360, 640)
+RE10K_SCENES = 4
+RE10K_FRAMES = 160
+RE10K_GAUSSIANS = 65536
+# the index generator's band, fitted to the synthetic trajectories: their
+# cameras turn little, so two frames 20 to 120 apart still share 0.85 to
+# 1.0 of their rays (the RE10K default band 0.6-0.8 finds no pair)
+RE10K_INDEX = {"min_distance": 20, "max_distance": 120, "min_overlap": 0.85,
+               "max_overlap": 0.99, "num_target_views": 3, "seed": 0}
+RE10K_TRAIN_STEPS = 2
+RE10K_ALIGN_STEPS = 10
+# the port's decode of the converter's files (JPEG at quality 95, 4:2:0)
+# against the rendered frames, in luma (JPEG's Y). Their RGB PSNR is printed:
+# the generator's per-splat colour noise is finer than the 2x2 chroma
+# samples, so 4:2:0 loses it (about 33 dB; PIL's files are the same bytes)
+RE10K_PSNR_MIN = 40.0
 # export: the tiny float32 model exported on the CPU (the tests' toy widths:
 # head dim 12, K1's float32 route on the card)
 TINY_EXPORT_NET = dict(img_size=32, patch_size=16, enc_embed_dim=64, enc_depth=2,
@@ -1790,8 +1830,21 @@ def serve_phase(dev, smi, configs, plain_tol, reset_counts, counts):
                                 intrinsics=K.cpu().numpy())
         direct = eng.reconstruct(images01, K)
         means = direct.gaussians.means.float().cpu().numpy()
-        jpeg = post_npz(port, "/reconstruct", jpeg_data=np.zeros(16, np.uint8),
-                        jpeg_sizes=np.array([16]), batch_shape=np.array([1, 1]))
+        # the same frames as JPEGs (the port's encoder, quality 95): answered
+        # as a direct call on the port's decode of them
+        from vicasplat_tpu_torch.utils.host_image import decode_jpegs_u8, encode_jpegs
+
+        u8 = (images01[0].float().cpu().numpy() * 255).round().astype(np.uint8)
+        bufs = [np.frombuffer(b, np.uint8) for b in encode_jpegs(u8, quality=95)]
+        jstatus, jbody = post_npz(port, "/reconstruct", jpeg_data=np.concatenate(bufs),
+                                  jpeg_sizes=np.array([len(b) for b in bufs]),
+                                  batch_shape=np.array([1, len(bufs)]),
+                                  intrinsics=K.cpu().numpy())
+        decoded = torch.from_numpy(decode_jpegs_u8(bufs)[None].astype(np.float32) / 255.0)
+        jdirect = eng.reconstruct(decoded.to(dev), K)
+        jmeans = jdirect.gaussians.means.float().cpu().numpy()
+        bad_jpeg = post_npz(port, "/reconstruct", jpeg_data=np.zeros(16, np.uint8),
+                            jpeg_sizes=np.array([16]), batch_shape=np.array([1, 1]))
     finally:
         srv.shutdown()
         srv.server_close()
@@ -1800,14 +1853,21 @@ def serve_phase(dev, smi, configs, plain_tol, reset_counts, counts):
               "centers_mean": body.get("centers_mean")
               == np.mean(means, axis=(1, 2, 3)).tolist(),
               "num_gaussians": body.get("num_gaussians") == 8 * 256 * 256,
-              "jpeg 501": jpeg[0] == 501}
+              "jpeg 200": jstatus == 200,
+              "jpeg poses": jbody.get("poses") == jdirect.poses.cpu().numpy().tolist(),
+              "jpeg centers_mean": jbody.get("centers_mean")
+              == np.mean(jmeans, axis=(1, 2, 3)).tolist(),
+              "bad jpeg 400": bad_jpeg[0] == 400}
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"serve HTTP fails {bad}: {status} {jpeg}")
+        raise AssertionError(f"serve HTTP fails {bad}: {status} {jstatus} {bad_jpeg}")
     phase("serve", t0, f"HTTP /reconstruct on loopback: poses and centers_mean equal "
-          f"the direct call's, latency_s {body['latency_s']:.4f}; jpeg_data answers "
-          f"{jpeg[0]}")
-    rec["http"] = {"latency_s": body["latency_s"], "jpeg_status": jpeg[0]}
+          f"the direct call's, latency_s {body['latency_s']:.4f}; jpeg_data ({len(bufs)} "
+          f"frames, {sum(len(b) for b in bufs)} bytes) equal to a direct call on the "
+          f"port's decode, latency_s {jbody['latency_s']:.4f}; a corrupt stream answers "
+          f"{bad_jpeg[0]}")
+    rec["http"] = {"latency_s": body["latency_s"], "jpeg_latency_s": jbody["latency_s"],
+                   "bad_jpeg_status": bad_jpeg[0]}
 
     # ---- W8A8: the quantized engine against the bf16 one ----
     t0 = time.perf_counter()
@@ -2721,6 +2781,222 @@ def export_finish(st: dict, smi) -> dict:
         raise AssertionError(f"export: {checks}")
     return res
 
+def expect_launches(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what} launches {got}, not {want}")
+
+
+def psnr_u8(a, b) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def luma(rgb):
+    """JPEG's Y of uint8 RGB, in float64."""
+    return rgb.astype(np.float64) @ np.array([0.299, 0.587, 0.114])
+
+
+def re10k_scenes(dev, out: pathlib.Path) -> dict:
+    """The synthetic generator's scenes 0.. at RE10K_HW, rendered on the card
+    in chunks of frames, written as <out>/<scene>/images/<i>.png (threads:
+    zlib releases the GIL) and cameras.npz (normalized K, c2w). Returns the
+    frames (uint8) by scene."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vicasplat_tpu_torch.data import synthetic_scenes as scenes
+    from vicasplat_tpu_torch.utils.image_io import encode_png, to_uint8
+
+    cfg = scenes.SyntheticScenesConfig(input_image_shape=RE10K_HW, n_frames=RE10K_FRAMES,
+                                       n_gaussians=RE10K_GAUSSIANS)
+    K = scenes.intrinsics_for(cfg)
+    K[1, 1] *= RE10K_HW[1] / RE10K_HW[0]  # square pixels
+    frames = {}
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for s in range(RE10K_SCENES):
+            rng = scenes.scene_rng(s, cfg)
+            gauss = scenes.scene_gaussians(rng, cfg)
+            poses = scenes.scene_trajectory(rng, cfg)
+            imgs = np.concatenate([to_uint8(scenes.render_scene_frames(
+                gauss, poses[i:i + 16], K, RE10K_HW, device=dev))
+                for i in range(0, RE10K_FRAMES, 16)])
+            d = out / f"scene_{s:02d}"
+            (d / "images").mkdir(parents=True)
+            np.savez(d / "cameras.npz", intrinsics=np.tile(K, (RE10K_FRAMES, 1, 1)),
+                     extrinsics_c2w=poses)
+            list(pool.map(lambda i, d=d, imgs=imgs: (d / "images" / f"{i:04d}.png")
+                          .write_bytes(encode_png(imgs[i])), range(RE10K_FRAMES)))
+            frames[d.name] = imgs
+    return frames
+
+
+def re10k_phase(dev, smi, reset_counts, counts, zero):
+    """Phase re10k (see the module's docstring)."""
+    import shutil
+
+    from vicasplat_tpu_torch import main as tmain
+    from vicasplat_tpu_torch.data import dataset_re10k
+    from vicasplat_tpu_torch.data import convert_scripts
+    from vicasplat_tpu_torch.data.data_module import PrefetchIterator
+    from vicasplat_tpu_torch.evaluation import extend_index, index_generator, nvs_eval
+    from vicasplat_tpu_torch.models import VicaNetConfig
+    from vicasplat_tpu_torch.utils.config import parse_cli
+    from vicasplat_tpu_torch.utils.host_image import decode_jpegs_u8
+
+    t0 = time.perf_counter()
+    work = ROOT / "build/chip_smoke_re10k"
+    shutil.rmtree(work, ignore_errors=True)
+    rec = {}
+    # ---- scenes, conversion, the decoder against the rendered frames ----
+    frames = re10k_scenes(dev, work / "scenes")
+    t_render = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for stage in ("train", "test"):
+        convert_scripts.main(["--input_dir", str(work / "scenes"), "--output_dir",
+                              str(work / "re10k"), "--stage", stage])
+    t_convert = time.perf_counter() - t1
+    chunk = torch.load(work / "re10k/test/000000.torch", weights_only=True)
+    luma_db, rgb_db = [], []
+    for ex in chunk:
+        dec = decode_jpegs_u8(ex["images"])
+        ref = frames[ex["key"]]
+        rgb_db.append(psnr_u8(dec, ref))
+        luma_db.append(psnr_u8(luma(dec), luma(ref)))
+    jpeg_bytes = sum(len(x) for ex in chunk for x in ex["images"])
+    if min(luma_db) < RE10K_PSNR_MIN:
+        raise AssertionError(f"JPEG round trip: luma {luma_db} dB, under {RE10K_PSNR_MIN}")
+    phase("re10k", t0, f"[{smi}] {RE10K_SCENES} scenes x {RE10K_FRAMES} frames of "
+          f"{RE10K_HW[0]}x{RE10K_HW[1]} rendered and written as PNG in {t_render:.1f} s, "
+          f"converted (train and test) in {t_convert:.1f} s, {jpeg_bytes} JPEG bytes a "
+          f"stage; the port's decode against the rendered frames: 4:2:0 q95 luma PSNR "
+          + ", ".join(f"{x:.2f}" for x in luma_db) + f" dB (min {RE10K_PSNR_MIN}), RGB "
+          + ", ".join(f"{x:.2f}" for x in rgb_db) + " dB")
+    rec["jpeg"] = dict(luma_db=luma_db, rgb_db=rgb_db, bytes=jpeg_bytes,
+                       render_s=t_render, convert_s=t_convert)
+    del frames, chunk
+
+    # ---- the 2-view index and its 8-view extension ----
+    t1 = time.perf_counter()
+    idx2 = index_generator.main(["--data_root", str(work / "re10k/test"), "--output_path",
+                                 str(work / "index"), *[f"--{k}={v}" for k, v in
+                                                        RE10K_INDEX.items()]])
+    index2 = json.loads(pathlib.Path(idx2).read_text())
+    index8 = extend_index.main(["--index_2v", str(idx2), "--data_root",
+                                str(work / "re10k/test"), "--n_context", "8", "--n_target",
+                                "3", "--output", str(work / "index/index_8v.json")])
+    if not any(v is not None for v in index2.values()) or not index8:
+        raise AssertionError(f"no scene indexed: {index2}, {index8}")
+    scene = sorted(index8)[0]
+    one = work / "index/index_8v_one.json"
+    one.write_text(json.dumps({scene: index8[scene]}))
+    phase("re10k", t0, f"index band {RE10K_INDEX}: 2-view {index2}; 8-view {index8} "
+          f"({time.perf_counter() - t1:.1f} s)")
+    rec["index"] = dict(band=RE10K_INDEX, two_view=index2, eight_view=index8)
+
+    # ---- train mode from the chunks: the flagship step ----
+    dec_depth = VicaNetConfig().dec_depth
+    example_s, waits = [], []
+    process, nxt = dataset_re10k.DatasetRE10k._process, PrefetchIterator.__next__
+
+    def timed_process(self, raw, rng=None):
+        t = time.perf_counter()
+        ex = process(self, raw, rng)
+        example_s.append(time.perf_counter() - t)
+        return ex
+
+    def timed_next(self):
+        t = time.perf_counter()
+        item = nxt(self)
+        waits.append(time.perf_counter() - t)
+        return item
+
+    out = work / "train"
+    argv = ["+experiment=re10k_8view", "mode=train", f"dataset.re10k.roots=[{work / 're10k'}]",
+            f"trainer.max_steps={RE10K_TRAIN_STEPS}", "train.print_log_every_n_steps=1",
+            f"output_dir={out}", f"checkpointing.output_dir={out}/ckpts", "wandb.mode=disabled"]
+    torch.cuda.empty_cache()
+    with mock.patch.object(dataset_re10k.DatasetRE10k, "_process", timed_process), \
+            mock.patch.object(PrefetchIterator, "__next__", timed_next):
+        tr = train_mode_run(dev, argv, reset_counts, counts)
+    for st in tr["steps"]:
+        expect_launches(f"re10k train step {st['step']}", st["launches"],
+                        dict(zero, flash_attn=2 * dec_depth, flash_attn_bwd=dec_depth))
+    batch = parse_cli(argv).data_loader["train"]["batch_size"]
+    loader_s = batch * statistics.mean(example_s)
+    snap = out / "ckpts" / f"step_{RE10K_TRAIN_STEPS:08d}.npz"
+    if not snap.exists():
+        raise AssertionError(f"no checkpoint {snap}")
+    shapes = tr["steps"][0]["scenes"]
+    phase("re10k", t0, f"[{smi}] train mode, re10k_8view from chunks: {len(tr['steps'])} "
+          f"steps of batch {batch} (scenes {shapes}), ms "
+          + ", ".join(f"{st['ms']:.1f}" for st in tr["steps"]) + "; losses "
+          + ", ".join(f"{st['loss']:.5f}" for st in tr["steps"])
+          + f"; launches a step {tr['steps'][-1]['launches']}; loader "
+          f"{loader_s:.3f} s a batch ({len(example_s)} examples, "
+          f"{statistics.mean(example_s):.3f} s each, decode and resize on its thread), "
+          "the step waited " + ", ".join(f"{w:.3f}" for w in waits) + " s for its batch; "
+          f"peak {tr['peak_gb']:.1f} GB; run {tr['wall_s']:.1f} s; checkpoint "
+          f"{snap.stat().st_size} bytes")
+    rec["train"] = dict(steps=[{k: v for k, v in st.items() if k != "scenes"}
+                               for st in tr["steps"]],
+                        batch=batch, loader_s_per_batch=loader_s, example_s=example_s,
+                        waits_s=waits, peak_gb=tr["peak_gb"], wall_s=tr["wall_s"],
+                        checkpoint_bytes=snap.stat().st_size)
+    del tr
+    torch.cuda.empty_cache()
+
+    # ---- test mode on one indexed scene, accelerator configuration ----
+    t1 = time.perf_counter()
+    tout = work / "test"
+    argv = ["+experiment=re10k_8view", "mode=test", f"dataset.re10k.roots=[{work / 're10k'}]",
+            "dataset.re10k.view_sampler={name: evaluation, index_path: " f"{one}, "
+            "num_context_views: 8}", f"test.pose_align_steps={RE10K_ALIGN_STEPS}",
+            f"test.output_path={tout}", f"checkpointing.load={snap}",
+            "encoder.head_tail_backend=pallas", "decoder.rasterize.backend=pallas",
+            "decoder.rasterize.binning=origin"]
+    views = []
+    evaluate = nvs_eval.evaluate_scene
+
+    def counted(*a, **kw):
+        r = evaluate(*a, **kw)
+        views.append(a[4]["target"]["image"].shape[1])
+        return r
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(nvs_eval, "evaluate_scene", counted):
+        summary, results = tmain.main(argv, device=dev)
+    torch.cuda.synchronize()
+    launches = counts()
+    n = (RE10K_ALIGN_STEPS + 1) * sum(views)
+    expect_launches("re10k test mode", launches, dict(
+        zero, flash_attn=dec_depth, dpt_tail=1, composite=n, bitonic_topk=n))
+    files = [tout / name for name in ("scores_all_avg.json", "benchmark.json",
+                                       "peak_memory.json")] + [
+        tout / scene / name for name in ("transforms.json", "compare.png",
+                                         "color/000.png", "context/007.png")]
+    r = results[0] if results else {}
+    bad = [k for k in ("psnr", "ssim", "ate") if not math.isfinite(r.get(k, math.nan))]
+    missing = [str(f) for f in files if not f.exists()]
+    if len(results) != 1 or bad or missing:
+        raise AssertionError(f"re10k test mode: {len(results)} scenes, non-finite {bad}, "
+                             f"missing {missing}")
+    bench = json.loads((tout / "benchmark.json").read_text())
+    secs = {k: v["mean_warm_s"] for k, v in bench.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    phase("re10k", t0, f"[{smi}] test mode, re10k_8view accelerator configuration on "
+          f"{scene} (8 context views, {views[0]} targets, the 2-step checkpoint, "
+          f"{RE10K_ALIGN_STEPS} alignment steps): launches {launches}; psnr "
+          f"{r['psnr']:.4f} ssim {r['ssim']:.4f} ate {r['ate']:.4f}; seconds "
+          + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
+          + f"; peak {peak_gb:.1f} GB; {time.perf_counter() - t1:.1f} s")
+    rec["test"] = dict(scene=scene, views=views[0], launches=launches,
+                       scores={k: r[k] for k in ("psnr", "ssim", "ate")}, seconds=secs,
+                       peak_gb=peak_gb, summary=summary)
+    rec["wall_s"] = time.perf_counter() - t0
+    shutil.rmtree(work / "train" / "ckpts", ignore_errors=True)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3058,6 +3334,7 @@ def main():
     torch.cuda.empty_cache()
     serve_trained = serve_trained_phase(dev, smi, reset_counts, counts)
     train_mode = train_mode_phase(dev, smi, reset_counts, counts, zero)
+    re10k = re10k_phase(dev, smi, reset_counts, counts, zero)
 
     def entry(name, replaces, r, launches=None, source=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3114,6 +3391,9 @@ def main():
                  # the demo's forward and streaming engine, and one call of
                  # each exported program (torch.profiler's records)
                  "demo_launches": {k: demo[k]["launches"] for k in ("short", "long")},
+                 # the re10k_8view train step from chunks, and its test mode
+                 "re10k_launches": {"train_step": re10k["train"]["steps"][-1]["launches"],
+                                    "test": re10k["test"]["launches"]},
                  "export_launches": {k: exported["child"][k]["profiled"]
                                      for k in ("reconstruct", "render", "tiny")}},
         "train": {k: train[k] for k in ("batch", "targets", "cuts", "train_step_ms",
@@ -3133,6 +3413,7 @@ def main():
         "export": exported,
         "serve_trained": serve_trained,
         "train_mode": train_mode,
+        "re10k": re10k,
         "wall_s": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -116,22 +116,64 @@ def test_png_filters_each_decode(tmp_path):
         np.testing.assert_array_equal(ref, img)
 
 
+def adam7_png(px: np.ndarray, depth: int, ctype: int) -> bytes:
+    """An Adam7-interlaced PNG of `px` ((H, W, C) samples), each pass's
+    rows unfiltered (PIL writes no interlaced PNG)."""
+    h, w = px.shape[:2]
+    raw = b""
+    for y0, x0, dy, dx in ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+                           (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1)):
+        sub = px[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        rows = sub.astype(">u2" if depth == 16 else np.uint8).reshape(sub.shape[0], -1)
+        for r in rows:
+            raw += b"\x00" + r.tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (tio.PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                                            0, 0, 1))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
 def test_unsupported_inputs_raise(tmp_path):
+    """JPEG frames are read by the port's codec as PIL reads them; 16-bit
+    and Adam7-interlaced PNGs as PIL reads them; sub-byte PNGs and other
+    files still raise."""
     img = make_image()[..., :3]
-    Image.fromarray(img).save(tmp_path / "x.jpg")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.load_image(tmp_path / "x.jpg")
-    (tmp_path / "i.png").write_bytes(pil_png(Image.fromarray(img)))
-    interlaced = bytearray((tmp_path / "i.png").read_bytes())
-    # the IHDR's interlace byte (offset 8 + 8 + 12), its CRC rewritten
-    interlaced[28] = 1
-    crc = zlib.crc32(bytes(interlaced[12:29])) & 0xFFFFFFFF
-    interlaced[29:33] = struct.pack(">I", crc)
-    with pytest.raises(ValueError, match="interlaced"):
-        tio.decode_png(bytes(interlaced))
+    Image.fromarray(img).save(tmp_path / "x.jpg", quality=90)
+    np.testing.assert_array_equal(
+        tio.read_rgb8(tmp_path / "x.jpg"),
+        np.asarray(Image.open(tmp_path / "x.jpg").convert("RGB")))
+    (tmp_path / "bad.jpg").write_bytes(b"\xff\xd8\xff\xd9")
+    with pytest.raises(ValueError, match="bad.jpg"):
+        tio.load_image(tmp_path / "bad.jpg")
+    rng = np.random.default_rng(5)
+    cases = [(img, 8, 2), (img[..., :1], 8, 0),
+             (rng.integers(0, 65536, img.shape[:2] + (1,)), 16, 0),
+             (rng.integers(0, 65536, img.shape), 16, 2),
+             (rng.integers(0, 65536, img.shape[:2] + (4,)), 16, 6)]
+    for px, depth, ctype in cases:
+        png = adam7_png(px, depth, ctype)
+        ref = Image.open(io.BytesIO(png))
+        samples, got_type, _ = tio.decode_png_samples(png)
+        assert got_type == ctype
+        np.testing.assert_array_equal(samples, px, err_msg=f"{depth}-bit type {ctype}")
+        if ref.mode in ("L", "I;16"):
+            np.testing.assert_array_equal(samples[..., 0], np.asarray(ref))
+        np.testing.assert_array_equal(tio.decode_png(png), np.asarray(ref.convert("RGB")),
+                                      err_msg=f"{depth}-bit type {ctype} as RGB")
     sixteen = Image.fromarray(img[..., 0].astype(np.uint16) * 257)
-    with pytest.raises(ValueError, match="bit depth 16"):
-        tio.decode_png(pil_png(sixteen))
+    np.testing.assert_array_equal(tio.decode_png_samples(pil_png(sixteen))[0][..., 0],
+                                  np.asarray(sixteen))
+    two_bit = bytearray(pil_png(Image.fromarray(img[..., 0])))
+    two_bit[24] = 2  # the IHDR's bit depth, its CRC rewritten
+    two_bit[29:33] = struct.pack(">I", zlib.crc32(bytes(two_bit[12:29])) & 0xFFFFFFFF)
+    with pytest.raises(ValueError, match="bit depth 2"):
+        tio.decode_png(bytes(two_bit))
     with pytest.raises(ValueError, match="not a PNG"):
         tio.decode_png(b"GIF89a")
 
@@ -154,11 +196,15 @@ def test_load_images_match_root_demo(tmp_path, hw):
 
 
 def test_load_images_refuses_jpeg_and_empty_dirs(tmp_path):
+    """An empty directory raises; JPEG frames load as the root demo's
+    `load_images` (PIL) loads them."""
     with pytest.raises(FileNotFoundError):
         tdemo.load_images(tmp_path)
-    Image.fromarray(make_image()[..., :3]).save(tmp_path / "a.jpeg")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tdemo.load_images(tmp_path)
+    for i in range(2):
+        Image.fromarray(make_image(48, 70, seed=i)[..., :3]).save(tmp_path / f"{i}.jpeg",
+                                                                  quality=95)
+    np.testing.assert_array_equal(tdemo.load_images(tmp_path, 32),
+                                  root_demo.load_images(tmp_path, 32))
 
 
 # ---- run_demo at toy size ----

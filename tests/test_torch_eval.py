@@ -161,11 +161,14 @@ def test_sequential_sampler_matches_jax(stage, step, kw):
 
 
 def test_unported_samplers_raise():
+    """Every sampler of the JAX package is ported; an unknown name raises,
+    and so does a scene too short for the sampler."""
     from vicasplat_tpu_torch.data.view_samplers import NotEnoughFramesError, make_view_sampler
 
-    for name in ("bounded", "evaluation", "arbitrary", "all"):
-        with pytest.raises(NotImplementedError, match=name):
-            make_view_sampler({"name": name}, "train")
+    for name in ("bounded", "arbitrary", "all"):
+        assert make_view_sampler({"name": name}, "train").cfg.name == name
+    with pytest.raises(ValueError, match="unknown view sampler"):
+        make_view_sampler({"name": "nearest"}, "train")
     with pytest.raises(NotEnoughFramesError):
         make_view_sampler({"name": "sequential", "num_context_views": 4,
                            "min_distance_between_context_views": 5},
@@ -176,8 +179,11 @@ def test_data_module_schema_and_loaders(cfgs):
     _, tcfg = cfgs
     with pytest.raises(ValueError, match="unknown data_loader"):
         DataModule(tcfg.dataset, {"test": {"batchsize": 1}}, device="cpu").test_dataloader()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DataModule({"re10k": {"name": "re10k"}}, {}, device="cpu").test_dataloader()
+    with pytest.raises(ValueError, match="unknown dataset"):
+        DataModule({"x": {"name": "imagenet"}}, {}, device="cpu").test_dataloader()
+    # the chunk reader is ported: no chunks under its roots, no batches
+    assert list(DataModule({"re10k": {"name": "re10k", "roots": []}}, {},
+                           device="cpu").test_dataloader()) == []
     # the train loader collates on prefetch threads (tests/test_torch_train.py)
     train = DataModule(tcfg.dataset, tcfg.data_loader, device="cpu").loader("train")
     try:

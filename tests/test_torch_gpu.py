@@ -898,3 +898,62 @@ def test_exported_tiny_program_launches_k1_f32(cuda, tmp_path):
         a, b = out["gaussians"][name].cpu(), getattr(ref.gaussians, name)
         assert ((a - b).abs().max() / b.abs().max()).item() < TINY_TOL, name
     assert (out["poses"].cpu() - ref.poses).abs().max().item() < TINY_TOL
+
+
+# ---- the RE10K data path on the card's machine ----
+
+# the port's JPEG round trip at quality 95 (4:2:0) of smooth frames, as a
+# camera's are: at least this PSNR
+JPEG_PSNR_MIN = 40.0
+
+
+def test_codec_and_re10k_loader_on_card(cuda, tmp_path):
+    """The port's host JPEG codec on the card's machine (built by g++ there,
+    no PIL): an encode -> decode round trip of 360x640 frames at quality
+    95 within JPEG_PSNR_MIN; then those files in a chunk through the re10k
+    train loader, sharded over 2 workers, onto the card."""
+    import json
+
+    import numpy as np
+
+    from vicasplat_tpu_torch.data.data_module import DataModule
+    from vicasplat_tpu_torch.utils.host_image import decode_jpegs_u8, encode_jpegs
+
+    n, h, w = 24, 360, 640
+    y, x = np.mgrid[0:h, 0:w] / np.array([h, w])[:, None, None]
+    t = np.arange(n)[:, None, None] / n
+    frames = np.stack([128 + 100 * np.sin(6 * x + 3 * t), 128 + 90 * np.cos(5 * y - 2 * t),
+                       128 + 80 * np.sin(4 * (x + y) + t)], -1)
+    frames = np.clip(frames + np.random.default_rng(0).normal(0, 2, frames.shape), 0, 255)
+    frames = frames.astype(np.uint8)
+    files = encode_jpegs(frames, quality=95)
+    back = decode_jpegs_u8(files)
+    mse = np.mean((back.astype(np.float64) - frames) ** 2)
+    assert 10 * np.log10(255 ** 2 / mse) >= JPEG_PSNR_MIN
+
+    root = tmp_path / "re10k" / "train"
+    root.mkdir(parents=True)
+    c2w = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    c2w[:, 0, 3] = np.linspace(0, 1, n)
+    cams = np.zeros((n, 18), np.float32)
+    cams[:, :4] = (0.8, 1.4, 0.5, 0.5)
+    cams[:, 6:] = np.linalg.inv(c2w)[:, :3].reshape(n, 12)
+    torch.save([{"key": f"s{k}", "cameras": torch.from_numpy(cams),
+                 "images": [torch.frombuffer(bytearray(f), dtype=torch.uint8) for f in files],
+                 "url": "", "timestamps": torch.arange(n)} for k in range(2)],
+               root / "000000.torch")
+    (root / "index.json").write_text(json.dumps({"s0": "000000.torch", "s1": "000000.torch"}))
+    ds = {"re10k": {"name": "re10k", "roots": [str(tmp_path / "re10k")],
+                    "view_sampler": {"name": "sequential", "num_context_views": 3,
+                                     "num_target_views": 2,
+                                     "min_distance_between_context_views": 2,
+                                     "max_distance_between_context_views": 4}}}
+    loader = DataModule(ds, {"train": {"batch_size": 2, "num_workers": 2}},
+                        device="cuda").train_dataloader()
+    try:
+        batch = next(loader)
+    finally:
+        loader.close()
+    img = batch["context"]["image"]
+    assert img.device.type == "cuda" and img.shape == (2, 3, 256, 256, 3)
+    assert torch.isfinite(img).all() and sorted(batch["scene"]) == ["s0", "s1"]

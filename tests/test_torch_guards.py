@@ -62,8 +62,15 @@ def test_port_files_exist():
                 "demo", "export", "utils/ply", "visualization/camera_trajectory",
                 "visualization/video_render", "visualization/glb",
                 "visualization/drawing", "visualization/validation_in_3d",
-                "visualization/viewer", "visualization/viewer_server"):
+                "visualization/viewer", "visualization/viewer_server",
+                # the RE10K data path's
+                "geometry_np", "geometry/epipolar", "data/shims", "data/dataset_re10k",
+                "data/dataset_scannet", "data/colmap", "data/convert_scripts",
+                "evaluation/index_generator", "evaluation/extend_index",
+                "evaluation/metric_computer", "utils/host_image"):
         assert f"vicasplat_tpu_torch/{mod}.py" in names, mod
+    # the host C++ of the JPEG codec and the resize
+    assert (PORT / "csrc" / "image_host.cpp").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)

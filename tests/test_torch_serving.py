@@ -1,7 +1,8 @@
 """Parity of the port's serving engine (vicasplat_tpu_torch/serving.py) with
 the JAX package's InferenceEngine, in float32 on the CPU at the tiny config:
-reconstruct and render, the program cache, the HTTP routes on loopback, the
-bad-request and not-ported answers, and the adaptive rasterizer caps."""
+reconstruct and render, the program cache, the HTTP routes on loopback
+(float32 and JPEG payloads), the bad-request and not-ported answers, and
+the adaptive rasterizer caps."""
 import io
 import json
 import urllib.error
@@ -129,6 +130,26 @@ def test_reconstruct_endpoint_matches_jax(servers):
     assert tb["latency_s"] > 0
 
 
+def test_reconstruct_jpeg_endpoint_matches_jax(servers):
+    """A compressed request (the frames as one JPEG byte stream, their
+    sizes and (B, T)): the port decodes with its own codec the pixels the
+    JAX server gets from libjpeg, so the answers agree as for float32."""
+    from PIL import Image
+
+    images, K = inputs(B=2, seed=2)
+    bufs = []
+    for frame in images.reshape(-1, 32, 32, 3):
+        b = io.BytesIO()
+        Image.fromarray((frame * 255).astype(np.uint8)).save(b, format="JPEG", quality=90)
+        bufs.append(np.frombuffer(b.getvalue(), np.uint8))
+    body = dict(jpeg_data=np.concatenate(bufs), jpeg_sizes=np.array([len(b) for b in bufs]),
+                batch_shape=np.array([2, 3]), intrinsics=K)
+    jb, tb = (post(s, "/reconstruct", **body) for s in servers)
+    assert set(tb) == set(jb)
+    close(np.asarray(tb["poses"]), jb["poses"], msg="poses")
+    close(np.asarray(tb["centers_mean"]), jb["centers_mean"], msg="centers_mean")
+
+
 def test_reconstruct_video_endpoint_matches_jax(servers):
     F = 5
     frames = np.random.default_rng(3).uniform(0, 1, (F, 32, 32, 3)).astype(np.float32)
@@ -151,11 +172,19 @@ def test_bad_requests(servers):
     with pytest.raises(urllib.error.HTTPError) as ei:  # no images
         post(srv, "/reconstruct", intrinsics=K1)
     assert ei.value.code == 400
-    with pytest.raises(urllib.error.HTTPError) as ei:
+    with pytest.raises(urllib.error.HTTPError) as ei:  # not a JPEG stream
         post(srv, "/reconstruct", jpeg_data=np.zeros(8, np.uint8),
              jpeg_sizes=np.array([8]), batch_shape=np.array([1, 1]))
-    assert ei.value.code == 501
-    assert "ROADMAP §1 item 5" in json.loads(ei.value.read())["error"]
+    assert ei.value.code == 400
+    assert "JPEG frame 0" in json.loads(ei.value.read())["error"]
+    # a header-only stream declaring 65535^2: refused before any allocation
+    huge = (b"\xff\xd8\xff\xc0\x00\x11\x08\xff\xff\xff\xff\x03"
+            b"\x01\x22\x00\x02\x11\x01\x03\x11\x01\xff\xd9")
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        post(srv, "/reconstruct", jpeg_data=np.frombuffer(huge * 8, np.uint8),
+             jpeg_sizes=np.array([len(huge)] * 8), batch_shape=np.array([1, 8]))
+    assert ei.value.code == 400
+    assert "larger than the limit" in json.loads(ei.value.read())["error"]
     with pytest.raises(urllib.error.HTTPError) as ei:
         post(srv, "/nowhere", images=np.zeros(1, np.float32))
     assert ei.value.code == 404

@@ -4,19 +4,24 @@ with its strict loader schema. Datasets yield numpy examples; a loader
 collates them and puts each batch on the card through pinned memory and
 non-blocking copies (`to_device`).
 
-The train loader collates on a background thread (`PrefetchIterator`) and
+The train loader collates on background threads (`PrefetchIterator`) and
 copies each batch to the device on the consuming thread, in `__next__`: the
 copy is queued on that thread's current stream, so it is ordered before the
-step that uses it with no event. The synthetic dataset renders a scene's
-frames on the device from the producer thread; that render runs on the
-device's default stream, as the train loop does, and comes back to the host
-(a synchronizing copy) before it is collated, so no device tensor crosses
-threads. Its rasterizer is the default matmul path, which launches none of
-the port's kernels: the kernels' launch counts stay the train loop's own.
+step that uses it with no event. With `num_workers > 0` a chunk reader is
+sharded (`iter_shard`), one producer thread a shard feeding a collator
+thread, as the JAX loader does: the JPEG decode and the resize run in the
+port's host library, which releases the GIL. The synthetic dataset renders
+a scene's frames on the device from the producer thread; that render runs
+on the device's default stream, as the train loop does, and comes back to
+the host (a synchronizing copy) before it is collated, so no device tensor
+crosses threads. Its rasterizer is the default matmul path, which launches
+none of the port's kernels: the kernels' launch counts stay the train
+loop's own.
 
-Ported datasets: `synthetic` (data/synthetic_scenes.py). The chunk readers
-(RE10K, ACID, DL3DV, ScanNet++, MVImgNet, ScanNet) are not ported yet
-(ROADMAP.md §1 item 5): naming them raises.
+Datasets: `synthetic` (data/synthetic_scenes.py); the chunk readers
+`re10k`, `acid`, `dl3dv`, `scannetpp` and `mvimgnet`
+(data/dataset_re10k.py); `scannet` and `scannet_pose`
+(data/dataset_scannet.py).
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from .dataset_re10k import DatasetRE10k, DatasetRE10kConfig
+from .dataset_scannet import DatasetScannet, DatasetScannetConfig
 from .synthetic_scenes import DatasetSyntheticScenes, SyntheticScenesConfig
 from .view_samplers import make_view_sampler
 
@@ -37,7 +44,9 @@ class DataLoaderConfig:
     batch_size: int = 2
     seed: int = 1234
     prefetch: int = 2
-    num_workers: int = 0  # JAX shards a chunk reader over it; none is ported
+    # train only: shards of a chunk reader, each on its own producer thread
+    # (the reference DataLoader's num_workers); 0 iterates on one thread
+    num_workers: int = 0
 
 
 def collate(examples: list) -> dict:
@@ -68,35 +77,46 @@ def to_device(batch, device):
 
 
 class PrefetchIterator:
-    """Collates batches from an example iterator on a background thread
-    (JAX `data_module.py:49-189`, its one-iterator path: the JAX loader takes
-    several producers and a collator thread only for a sharded reader with
-    `num_workers > 0`, and no ported dataset is sharded). `transfer`, if
-    given, maps each collated batch on the consuming thread (the train
-    loader puts it on the device there)."""
+    """Collates batches of `batch_size` examples on background threads (JAX
+    `data_module.py:49-189`). One example iterator: one thread collates it.
+    Several (a sharded reader's shards): one producer thread each feeds a
+    shared example queue and one collator thread assembles the batches.
+    `transfer`, if given, maps each collated batch on the consuming thread
+    (the train loader puts it on the device there)."""
 
-    def __init__(self, example_iter, batch_size: int, prefetch: int = 2,
+    def __init__(self, example_iters, batch_size: int, prefetch: int = 2,
                  drop_last: bool = True, transfer=None):
+        if not isinstance(example_iters, (list, tuple)):
+            example_iters = [example_iters]
         self.batch_size = batch_size
         self.drop_last = drop_last
         self.transfer = transfer
         self._stop = threading.Event()
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
-        self._thread = threading.Thread(target=self._worker, args=(example_iter,),
-                                        daemon=True)
-        self._thread.start()
+        self._ex_q = None
+        if len(example_iters) == 1:
+            self._threads = [threading.Thread(target=self._single_worker,
+                                              args=(example_iters[0],), daemon=True)]
+        else:
+            self._ex_q = queue.Queue(maxsize=max(2 * batch_size, 8))
+            self._threads = [threading.Thread(target=self._producer, args=(it,), daemon=True)
+                             for it in example_iters]
+            self._threads.append(threading.Thread(
+                target=self._collator, args=(len(example_iters),), daemon=True))
+        for t in self._threads:
+            t.start()
 
-    def _put(self, item) -> bool:
+    def _put(self, q: queue.Queue, item) -> bool:
         """put() that gives up once the consumer has closed the iterator."""
         while not self._stop.is_set():
             try:
-                self._q.put(item, timeout=0.2)
+                q.put(item, timeout=0.2)
                 return True
             except queue.Full:
                 continue
         return False
 
-    def _worker(self, it):
+    def _single_worker(self, it):
         batch = []
         try:
             for ex in it:
@@ -104,25 +124,62 @@ class PrefetchIterator:
                     return
                 batch.append(ex)
                 if len(batch) == self.batch_size:
-                    if not self._put(collate(batch)):
+                    if not self._put(self._q, collate(batch)):
                         return
                     batch = []
             if batch and not self.drop_last:
-                self._put(collate(batch))
+                self._put(self._q, collate(batch))
         except Exception as e:  # raised again on the consuming thread
-            self._put(e)
-        self._put(None)
+            self._put(self._q, e)
+        self._put(self._q, None)
+
+    def _producer(self, it):
+        try:
+            for ex in it:
+                if not self._put(self._ex_q, ex):
+                    return
+        except Exception as e:  # handed to the collator, which raises it
+            self._put(self._ex_q, e)
+        self._put(self._ex_q, StopIteration())
+
+    def _collator(self, n_producers: int):
+        batch, done = [], 0
+        try:
+            while done < n_producers and not self._stop.is_set():
+                try:
+                    item = self._ex_q.get(timeout=0.2)
+                except queue.Empty:
+                    continue
+                if isinstance(item, StopIteration):
+                    done += 1
+                    continue
+                if isinstance(item, Exception):
+                    raise item
+                batch.append(item)
+                if len(batch) == self.batch_size:
+                    if not self._put(self._q, collate(batch)):
+                        return
+                    batch = []
+            if batch and not self.drop_last:
+                self._put(self._q, collate(batch))
+        except Exception as e:
+            self._put(self._q, e)
+        self._put(self._q, None)
 
     def close(self):
-        """Stop the thread (safe after a partial iteration) and wait for it;
-        a thread still inside one example's work finishes it first."""
+        """Stop the threads (safe after a partial iteration) and wait for
+        them; a thread still inside one example's work finishes it first."""
         self._stop.set()
-        try:
-            while True:  # so that a thread blocked in put() sees the flag
-                self._q.get_nowait()
-        except queue.Empty:
-            pass
-        self._thread.join()
+        for q in (self._q, self._ex_q):
+            if q is None:
+                continue
+            try:
+                while True:  # so that a thread blocked in put() sees the flag
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+        for t in self._threads:
+            t.join()
 
     def __iter__(self):
         return self
@@ -136,19 +193,24 @@ class PrefetchIterator:
         return item if self.transfer is None else self.transfer(item)
 
 
-DATASETS = {"synthetic": (DatasetSyntheticScenes, SyntheticScenesConfig)}
-NOT_PORTED = ("re10k", "acid", "dl3dv", "scannetpp", "mvimgnet", "scannet",
-              "scannet_pose")
+DATASETS = {
+    "re10k": (DatasetRE10k, DatasetRE10kConfig),
+    "acid": (DatasetRE10k, DatasetRE10kConfig),
+    "dl3dv": (DatasetRE10k, DatasetRE10kConfig),
+    "scannetpp": (DatasetRE10k, DatasetRE10kConfig),
+    "mvimgnet": (DatasetRE10k, DatasetRE10kConfig),
+    "scannet": (DatasetScannet, DatasetScannetConfig),
+    "scannet_pose": (DatasetScannet, DatasetScannetConfig),
+    "synthetic": (DatasetSyntheticScenes, SyntheticScenesConfig),
+}
 
 
 def _build_dataset(ds_dict: dict, stage: str, step_tracker, seed: int, device="cpu"):
     d = dict(ds_dict)
     sampler_cfg = d.pop("view_sampler", {"name": "bounded"})
     name = d.get("name", "re10k")
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name!r}: its reader is not ported yet (ROADMAP.md §1 item 5); "
-            "the port reads the 'synthetic' dataset")
+    if name not in DATASETS:
+        raise ValueError(f"unknown dataset {name!r}; expected one of {sorted(DATASETS)}")
     cls, cfg_cls = DATASETS[name]
     fields = {f.name for f in dataclasses.fields(cfg_cls)}
     cfg = cfg_cls(**{k: tuple(v) if isinstance(v, list) else v
@@ -191,25 +253,36 @@ class DataModule:
         """The train loader's batch size, from the typed loader config."""
         return self._loader_params("train", next(iter(self.dataset_cfgs), "")).batch_size
 
-    def _iters(self, stage: str) -> list:
+    def _iters(self, stage: str, num_workers: int = 0) -> list:
         iters = []
         for name, ds_dict in self.dataset_cfgs.items():
             seed = self._loader_params(stage, name).seed + self.global_rank
-            iters.append(iter(_build_dataset(
-                dict(ds_dict, name=ds_dict.get("name", name)), stage,
-                self.step_tracker, seed, self.device)))
+            ds = _build_dataset(dict(ds_dict, name=ds_dict.get("name", name)), stage,
+                                self.step_tracker, seed, self.device)
+            if num_workers > 0 and hasattr(ds, "iter_shard"):
+                iters.extend(ds.iter_shard(w, num_workers) for w in range(num_workers))
+            else:
+                iters.append(iter(ds))
         return iters
 
     def loader(self, stage: str) -> Iterator[dict]:
         """Batches of `batch_size` examples on the device, the datasets
-        taken in turns. Train: collated ahead on a background thread
-        (`PrefetchIterator`, `prefetch` batches), the last short batch
-        dropped; call `close()` when leaving it early. Val and test: made
-        on the calling thread, the last short batch kept."""
+        taken in turns. Train: collated ahead on background threads
+        (`PrefetchIterator`, `prefetch` batches; with `num_workers > 0` a
+        chunk reader's shards each on a producer thread), the last short
+        batch dropped; call `close()` when leaving it early. Val and test:
+        made on the calling thread, the last short batch kept."""
         lp = self._loader_params(stage, next(iter(self.dataset_cfgs), ""))
-        iters = self._iters(stage)
         if stage != "train":
-            return self._batches(iters, lp.batch_size)
+            return self._batches(self._iters(stage), lp.batch_size)
+        iters = self._iters(stage, lp.num_workers)
+
+        def transfer(b):
+            return to_device(b, self.device)
+
+        if lp.num_workers > 0:
+            return PrefetchIterator(iters, batch_size=lp.batch_size, prefetch=lp.prefetch,
+                                    drop_last=True, transfer=transfer)
 
         def round_robin():
             live = list(iters)
@@ -221,8 +294,7 @@ class DataModule:
                         live.remove(it)
 
         return PrefetchIterator(round_robin(), batch_size=lp.batch_size,
-                                prefetch=lp.prefetch, drop_last=True,
-                                transfer=lambda b: to_device(b, self.device))
+                                prefetch=lp.prefetch, drop_last=True, transfer=transfer)
 
     def _batches(self, iters: list, batch_size: int) -> Iterator[dict]:
         live, batch = list(iters), []

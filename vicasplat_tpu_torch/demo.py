@@ -5,7 +5,7 @@ the Gaussians as PLY, transforms.json and a GLB of centres and cameras.
     python -m vicasplat_tpu_torch.demo --image_dir frames/ \
         [--ckpt weights.npz] [--output_dir outputs/demo] [--fov 60]
 
-Frames are PNGs (`utils/image_io.decode_png`), resized on the short side as
+Frames are PNGs or JPEGs (`utils/image_io.read_rgb8`), resized on the short side as
 PIL's LANCZOS does and centre-cropped. Clips of at most `--window` frames
 go through one bf16 forward; longer ones stream through the serving engine
 by sliding windows (`streaming.reconstruct_video`). The render is the
@@ -29,7 +29,7 @@ IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg")
 def load_images(image_dir: pathlib.Path, size: int = 256) -> np.ndarray:
     """Resize the short side to `size` (PIL's LANCZOS, `resize_lanczos`),
     centre-crop a square (root `demo.py:24-45`). Returns (T, size, size, 3)
-    float32 in [0, 1]. JPEG frames raise NotImplementedError."""
+    float32 in [0, 1]. PNG and JPEG frames (the port's own decoders)."""
     from .utils.image_io import read_rgb8, resize_lanczos
 
     paths = sorted(p for p in pathlib.Path(image_dir).iterdir()

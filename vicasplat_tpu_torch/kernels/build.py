@@ -7,14 +7,20 @@ named by a hash of the source, the headers in `csrc/` and the flags, and is
 built at first use. The libraries link libcuda (`-lcuda`, from the
 toolkit's stubs at build time): K1's bf16 kernels encode their TMA tensor
 maps on the host with `cuTensorMapEncodeTiled`, which libcuda exports.
+
+Host C++ sources (`csrc/*.cpp`, such as the JPEG codec of the data path)
+take the same route with `g++` instead of nvcc (`load_host`); a missing or
+failing compiler raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -27,10 +33,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda",
 )
 
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
 _loaded: dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 _entries: dict[tuple, object] = {}
 build_logs: dict[str, str] = {}  # nvcc's stderr (ptxas register report)
-build_seconds: dict[str, float] = {}  # wall time of each source's nvcc
+build_seconds: dict[str, float] = {}  # wall time of each source's nvcc or g++
 
 
 def _nvcc() -> str:
@@ -121,3 +130,38 @@ def raw_stream(device: torch.device) -> int:
     take it, without building a torch.cuda.Stream (which costs about 10 us
     of host time a launch on the H100's host)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The shared library of the host source `csrc/<name>.cpp`, compiled at
+    first use by g++ into `build/kernels/` and loaded; thread-safe. The
+    file is named by a hash of the source, the flags, the compiler's
+    version and target, the machine and its C library, so a library built
+    on another machine is never loaded. Raises RuntimeError when g++ is
+    missing or fails."""
+    with _host_lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cpp"
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found: it builds {src}")
+        toolchain = [subprocess.run([gxx, flag], capture_output=True, text=True).stdout
+                     for flag in ("-dumpfullversion", "-dumpmachine")]
+        key = [src.read_bytes().decode(), *HOST_FLAGS, *toolchain, platform.machine(),
+               *platform.libc_ver()]
+        digest = hashlib.sha1("\0".join(key).encode()).hexdigest()[:12]
+        out = BUILD_DIR / f"{name}-{digest}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            build_seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed on {src}:\n{proc.stderr}")
+            os.replace(tmp, out)  # atomic, as for nvcc
+        lib = _loaded[name] = ctypes.CDLL(str(out))
+        return lib

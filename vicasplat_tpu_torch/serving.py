@@ -367,9 +367,18 @@ class InferenceEngine:
 # HTTP endpoint
 # ---------------------------------------------------------------------------
 
-JPEG_NOT_PORTED = ("jpeg_data payloads need the native JPEG decoder "
-                   "(decode_jpegs_u8), which waits for the data port (ROADMAP §1 "
-                   "item 5); send raw float32 images")
+def _decode_jpeg_payload(payload) -> np.ndarray:
+    """A compressed request (JAX `serving.py:324-340`): the frames as one
+    concatenated JPEG byte stream, `jpeg_sizes` a frame and `batch_shape`
+    (B, T) -> (B, T, H, W, 3) float32 in [0, 1], decoded by the port's JPEG
+    codec (a refused stream raises ValueError, answered 400)."""
+    from .utils.host_image import decode_jpegs_u8
+
+    sizes = payload["jpeg_sizes"].astype(np.int64)
+    data = payload["jpeg_data"]
+    ends = np.cumsum(sizes)
+    u8 = decode_jpegs_u8([data[e - s:e] for s, e in zip(sizes, ends)])
+    return u8.reshape(*tuple(payload["batch_shape"]), *u8.shape[1:]).astype(np.float32) / 255.0
 
 
 def make_handler(engine: InferenceEngine):
@@ -420,9 +429,9 @@ def make_handler(engine: InferenceEngine):
                 return
             payload = self._read_payload()
             if "jpeg_data" in payload:
-                self._send_json({"error": JPEG_NOT_PORTED}, status=501)
-                return
-            images = payload["images"]  # (B, T, H, W, 3) float32 in [0, 1]
+                images = _decode_jpeg_payload(payload)
+            else:
+                images = payload["images"]  # (B, T, H, W, 3) float32 in [0, 1]
             intr = payload["intrinsics"] if "intrinsics" in payload else None
             t0 = time.perf_counter()
             scene = engine.reconstruct(images, intr)

@@ -1,11 +1,13 @@
 """Image and video input and output on the host (port of
 vicasplat_tpu/utils/image_io.py:13-70). PNGs are written (8-bit RGB or
-grey, no filtering) and read (`decode_png`: 8-bit grey, grey + alpha, RGB,
-RGBA and palette images, every filter) by this module with zlib and
-struct, and `resize_lanczos` resizes as PIL's LANCZOS does, so no imaging
-package is needed; `save_video` imports OpenCV only when it is called, and
-without it writes the frames as PNGs, as the JAX version does. JPEG input
-is not ported (ROADMAP §1 item 5)."""
+grey, no filtering) and read (`decode_png_samples`: 8 and 16 bits a
+sample, grey, grey + alpha, RGB, RGBA and palette images, every filter,
+Adam7 interlacing) by this module with zlib and struct; JPEGs are read by
+the port's own codec (`utils/host_image.py`); `resize_lanczos` and
+`resize_bicubic` resize as PIL's LANCZOS and BICUBIC do (8-bit sums by
+the host library, 16-bit ones in numpy). So no imaging
+package is needed. `save_video` imports OpenCV only when it is called, and
+without it writes the frames as PNGs, as the JAX version does."""
 from __future__ import annotations
 
 import importlib.util
@@ -42,10 +44,11 @@ def encode_png(pixels: np.ndarray) -> bytes:
 
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# bytes a pixel, by colour type: grey, RGB, palette, grey + alpha, RGBA
+# samples a pixel, by colour type: grey, RGB, palette, grey + alpha, RGBA
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-JPEG_NOT_PORTED = ("JPEG input waits for the card's JPEG route, decided with the "
-                   "RE10K readers (ROADMAP §1 item 5); convert the frames to PNG")
+# Adam7 passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+          (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def _paeth(a: int, b: int, c: int) -> int:
@@ -95,10 +98,10 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's `convert("RGB")` gives it:
-    grey repeated, alpha dropped, a palette looked up. Bit depth 8 only:
-    16-bit, sub-byte and Adam7-interlaced images raise ValueError."""
+def decode_png_samples(data: bytes):
+    """PNG bytes -> (samples (H, W, C) uint8 or uint16, colour type,
+    palette (N, 3) uint8 or None). 8 or 16 bits a sample (sub-byte depths
+    raise ValueError), plain or Adam7-interlaced."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG file")
     pos, idat, palette, header = len(PNG_SIGNATURE), [], None, None
@@ -119,30 +122,65 @@ def decode_png(data: bytes) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = header
     if ctype not in _PNG_CHANNELS:
         raise ValueError(f"PNG colour type {ctype} is not one of 0, 2, 3, 4, 6")
-    if depth != 8:
-        raise ValueError(f"PNG bit depth {depth}: only 8 bits a sample are read "
-                         "(16-bit and sub-byte PNGs wait, ROADMAP §1 item 5)")
-    if interlace:
-        raise ValueError("Adam7-interlaced PNG: not read (ROADMAP §1 item 5)")
-    bpp = _PNG_CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp).reshape(h, w, bpp)
+    if depth not in (8, 16) or (ctype == 3 and depth != 8):
+        raise ValueError(f"PNG bit depth {depth} with colour type {ctype}: 8 and 16 "
+                         "bits a sample are read, not sub-byte depths")
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace} is not 0 or 1")
+    ch, nbytes = _PNG_CHANNELS[ctype], depth // 8
+    bpp = ch * nbytes
+    raw = zlib.decompress(b"".join(idat))
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    px = np.zeros((h, w, bpp), np.uint8)
+    at = 0
+    for y0, x0, dy, dx in passes:
+        ph, pw = (h - y0 + dy - 1) // dy, (w - x0 + dx - 1) // dx
+        if ph <= 0 or pw <= 0:
+            continue
+        size = ph * (pw * bpp + 1)
+        if at + size > len(raw):
+            raise ValueError(f"PNG image data holds {len(raw)} bytes, fewer than its size")
+        sub = _unfilter(raw[at:at + size], ph, pw * bpp, bpp)
+        px[y0::dy, x0::dx] = sub.reshape(ph, pw, bpp)
+        at += size
+    if at != len(raw):
+        raise ValueError(f"PNG image data holds {len(raw)} bytes, not {at}")
+    if nbytes == 2:  # big-endian samples
+        px = px.reshape(h, w, ch, 2).astype(np.uint16)
+        px = (px[..., 0] << 8) | px[..., 1]
+    return px, ctype, palette
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's `convert("RGB")` gives it:
+    grey repeated, alpha dropped, a palette looked up; 16-bit colour keeps
+    each sample's high byte (PIL's "RGB;16B" unpacking), 16-bit grey is
+    clipped to 255 (PIL's I;16 -> RGB)."""
+    px, ctype, palette = decode_png_samples(data)
     if ctype == 3:
         if palette is None:
             raise ValueError("palette PNG without a PLTE chunk")
         if int(px.max(initial=0)) >= len(palette):
             raise ValueError("PNG palette index out of range")
         return palette[px[..., 0]]
+    if px.dtype == np.uint16:
+        px = (np.minimum(px, 255) if ctype == 0 else px >> 8).astype(np.uint8)
     if ctype in (0, 4):
         return np.repeat(px[..., :1], 3, axis=-1)
     return np.ascontiguousarray(px[..., :3])
 
 
 def read_rgb8(path) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB. PNG only: a .jpg or .jpeg
-    raises NotImplementedError."""
+    """An image file -> (H, W, 3) uint8 RGB: a PNG through `decode_png`, a
+    .jpg or .jpeg through the port's JPEG decoder."""
     path = pathlib.Path(path)
     if path.suffix.lower() in (".jpg", ".jpeg"):
-        raise NotImplementedError(f"{path}: {JPEG_NOT_PORTED}")
+        from .host_image import decode_jpeg
+
+        try:
+            return decode_jpeg(path.read_bytes())
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
     return decode_png(path.read_bytes())
 
 
@@ -152,11 +190,10 @@ def load_image(path) -> np.ndarray:
 
 
 # PIL's resampling (Pillow's libImaging/Resample.c): coefficients in
-# float64, normalized, stored in fixed point with 22 fraction bits; each
-# sum starts at one half and is shifted down, then clipped to uint8, after
-# each pass
+# float64, normalized; for 8-bit samples stored in fixed point with 22
+# fraction bits, each sum starting at one half, shifted down and clipped to
+# uint8 after each pass; for 16-bit samples summed in float64 and rounded
 _PRECISION_BITS = 32 - 8 - 2
-_LANCZOS_SUPPORT = 3.0
 
 
 def _sinc(x: np.ndarray) -> np.ndarray:
@@ -168,12 +205,22 @@ def _lanczos(x: np.ndarray) -> np.ndarray:
     return np.where((x >= -3.0) & (x < 3.0), _sinc(x) * _sinc(x / 3.0), 0.0)
 
 
-def _resample_coeffs(in_size: int, out_size: int):
-    """(first source index (out,), fixed-point weights (out, ksize)) of one
-    axis, as Pillow's `precompute_coeffs` and `normalize_coeffs_8bpc`."""
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    a, x = -0.5, np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+_FILTERS = {"lanczos": (3.0, _lanczos), "bicubic": (2.0, _bicubic)}
+
+
+def _resample_weights(in_size: int, out_size: int, name: str = "lanczos"):
+    """(first source index (out,), normalized float64 weights (out, ksize))
+    of one axis, as Pillow's `precompute_coeffs`."""
+    support0, fn = _FILTERS[name]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = _LANCZOS_SUPPORT * filterscale
+    support = support0 * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # C's (int) truncates toward zero
@@ -182,37 +229,69 @@ def _resample_coeffs(in_size: int, out_size: int):
                        in_size) - xmin
     x = np.arange(ksize)
     valid = x[None] < count[:, None]
-    w = np.where(valid, _lanczos((x[None] + xmin[:, None] - center[:, None] + 0.5)
-                                 / filterscale), 0.0)
+    w = np.where(valid, fn((x[None] + xmin[:, None] - center[:, None] + 0.5)
+                           / filterscale), 0.0)
     ww = w.sum(1, keepdims=True)
-    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    return xmin, np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+
+
+def _resample_coeffs(in_size: int, out_size: int, name: str = "lanczos"):
+    """(first source index (out,), fixed-point weights (out, ksize)) of one
+    axis, as Pillow's `precompute_coeffs` and `normalize_coeffs_8bpc`."""
+    xmin, w = _resample_weights(in_size, out_size, name)
     one = float(1 << _PRECISION_BITS)
     fixed = np.where(w < 0, np.trunc(-0.5 + w * one), np.trunc(0.5 + w * one))
     return xmin, fixed.astype(np.int64)
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One pass along `axis` (1: horizontal, 0: vertical) of an (H, W, C)
-    uint8 image."""
+def _taps(img: np.ndarray, xmin: np.ndarray, ksize: int, axis: int) -> np.ndarray:
+    """(out, ksize, other) source samples of each output position."""
     in_size = img.shape[axis]
-    xmin, k = _resample_coeffs(in_size, out_size)
-    src = np.moveaxis(img, axis, 0).astype(np.int64)           # (in, other, C)
-    idx = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None], in_size - 1)
-    acc = np.einsum("ok,okxc->oxc", k, src[idx]) + (1 << (_PRECISION_BITS - 1))
-    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
+    idx = np.minimum(xmin[:, None] + np.arange(ksize)[None], in_size - 1)
+    return np.moveaxis(img, axis, 0)[idx]
+
+
+def _resample_axis16(img: np.ndarray, out_size: int, axis: int, name: str) -> np.ndarray:
+    """One pass of Pillow's I;16 resampling (`ImagingResampleHorizontal_16bpc`)
+    along `axis` of an (H, W) uint16 image: the float64 sum taken tap by tap,
+    rounded half away from zero, its low byte and high byte each clipped to
+    0..255."""
+    xmin, w = _resample_weights(img.shape[axis], out_size, name)
+    src = _taps(img, xmin, w.shape[1], axis).astype(np.float64)  # (out, k, other)
+    ss = np.zeros((out_size, src.shape[2]))
+    for j in range(w.shape[1]):
+        ss = ss + src[:, j] * w[:, j, None]
+    si = np.where(ss >= 0, ss + 0.5, ss - 0.5).astype(np.int64)  # C's (int) cast
+    lo = np.clip(np.fmod(si, 256), 0, 255)
+    hi = np.clip(si >> 8, 0, 255)
+    return np.moveaxis((hi * 256 + lo).astype(np.uint16), 0, axis)
 
 
 def resize_lanczos(img: np.ndarray, size: tuple) -> np.ndarray:
     """(H, W, C) uint8 -> (h, w, C) uint8 for size = (w, h), as PIL's
     `Image.resize(size, Image.LANCZOS)`: the horizontal pass first, then
-    the vertical one, each skipped where that side keeps its length."""
+    the vertical one, each skipped where that side keeps its length; the
+    sums by the host library (`host_image.resize_batch`)."""
+    from .host_image import resize_batch
+
+    return resize_batch(img[None], size, "lanczos", n_threads=1)[0]
+
+
+def resize_bicubic(img: np.ndarray, size: tuple) -> np.ndarray:
+    """PIL's `Image.resize(size)` (its default filter, BICUBIC) for size =
+    (w, h): an (H, W, C) uint8 image in 8-bit fixed point by the host
+    library (`host_image.resize_batch`), an (H, W) uint16 image (PIL's mode
+    I;16) in float64 with PIL's 16-bit rounding."""
+    if img.dtype != np.uint16:
+        from .host_image import resize_batch
+
+        return resize_batch(img[None], size, "bicubic", n_threads=1)[0]
     w, h = size
     out = img
     if w != img.shape[1]:
-        out = _resample_axis(out, w, 1)
+        out = _resample_axis16(out, w, 1, "bicubic")
     if h != img.shape[0]:
-        out = _resample_axis(out, h, 0)
+        out = _resample_axis16(out, h, 0, "bicubic")
     return out
 
 
