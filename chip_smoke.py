@@ -68,9 +68,10 @@ Phases, each printing lines with their seconds:
             repository's trained checkpoint
             (outputs/synthetic_pose/ckpt_committed/weights_latest.npz, the
             synthetic_pose model: 64^2, encoder 384 x 6, decoder 384 x 4,
-            linear heads) over the first 2 of the 8 held-out scenes (cut to
-            pay for demo, export and re10k) with 100 pose-alignment steps and the
-            default render: each scene's PSNR, SSIM and ATE, the means held
+            linear heads) over the first of the 8 held-out scenes (cut to
+            pay for demo, export, re10k and distill; its seconds are taken
+            beside eval-accel's two child processes, which start with it)
+            with 100 pose-alignment steps and the default render: each scene's PSNR, SSIM and ATE, the means held
             to the JAX package's of the same scenes
             (vicasplat_tpu_torch/evaluation/reference_synthetic_pose_96k.json,
             tools/jax_eval_reference.py), the Benchmarker's seconds per
@@ -117,11 +118,12 @@ Phases, each printing lines with their seconds:
             moved to the card launches K1's float32 route; trace seconds,
             artifact and weight bytes;
   eval-accel the same run with decoder.rasterize.backend=pallas and
-            binning=origin, on the first 2 of eval's 8 scenes (each scene
-            is held on its own; the cut pays for the serving phases and
-            re10k): K2
+            binning=origin, on the first of eval's 8 scenes (each scene
+            is held on its own; the cuts to 2 and then 1 paid for the
+            serving phases, re10k and distill): K2
             and K4 launches exactly per scene (once a view in each of the
-            101 renders), each scene's scores held to eval's. Beside it, two child processes
+            101 renders), each scene's scores held to eval's. Beside eval and
+            it, two child processes
             (vicasplat_tpu_torch/diagnostics/eval_split.py) run the same
             configuration with K2 and K4 swapped for their plain versions,
             the plain compositing summed in chunks of 128 rows
@@ -191,6 +193,21 @@ Phases, each printing lines with their seconds:
             2-step checkpoint in the accelerator configuration, 10 alignment
             steps: K1 12, K3 1, K2 and K4 once a rendered view, finite PSNR,
             SSIM and ATE, the files written.
+  distill   distillation: first two float32 steps, "distill_only" then
+            "distill", of the committed synthetic_pose student with a
+            small DUSt3R teacher drawn from a seed (96 x 2 encoder, 64 x 4
+            decoders) on a batch drawn from the same seed, each logged
+            scalar held to the JAX package's on the CPU
+            (vicasplat_tpu_torch/training/reference_distill.json,
+            tools/jax_distill_reference.py; DISTILL_TOL), K1's float32
+            route 4 + 4 a step; then main.py's train mode of the distill
+            experiment at full width (ViT-L student, the full DUSt3R teacher
+            with random weights, batch 24 of 2 context and 4 target frames
+            of 256^2) from re10k's chunks, 3 steps in the phases
+            distill_only, distill and full, the batch split into as few
+            micro-batches as fit the card: each step's phase, losses (the
+            distillation term in the first two only, finite), K1's launches
+            (24 + 12 a micro-batch), milliseconds and peak memory.
 Then a JSON line of kernels, the nvidia-smi line, and the result line.
 Float32 convolutions run in full float32 (cudnn.allow_tf32 = False), since
 K3's plain version is the reference.
@@ -220,9 +237,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # (tools/jax_eval_reference.py)
 EVAL_NPZ = "outputs/synthetic_pose/ckpt_committed/weights_latest.npz"
 EVAL_REF = "vicasplat_tpu_torch/evaluation/reference_synthetic_pose_96k.json"
-# eval's held-out scenes: the first 2 of the split's 8 (cut to 4 to pay for
-# the demo and export phases, to 2 for re10k). eval_pose still scores all 8
-EVAL_SCENES = 2
+# eval's held-out scenes: the first of the split's 8 (cut to 4 to pay for
+# the demo and export phases, to 2 for re10k, to 1 for distill). eval_pose
+# still scores all 8
+EVAL_SCENES = 1
 # the port's means over eval's scenes against the JAX reference's means of
 # the same scenes (its largest per-scene gap was 0.1015 dB, 0.00516 SSIM and
 # 0.0032 ATE on an H100, so any subset's mean stays within these):
@@ -242,9 +260,10 @@ POSE_TOL = {"ate": 0.01, "rpe_trans": 0.01, "rpe_rot": 0.1, "auc@5": 0.01,
 # to 0.0112 dB and 0.00174 SSIM, K2 alone by up to 0.0128 dB and 0.00039
 # SSIM (vicasplat_tpu_torch/diagnostics/eval_split.py)
 ACCEL_TOL = {"psnr": 0.05, "ssim": 0.002, "ate": 0.002}
-# eval-accel's held-out scenes: eval's 2. It holds each scene on its own, so
-# the cut loses no check; it pays for the serving phases and re10k
-ACCEL_SCENES = 2
+# eval-accel's held-out scenes: eval's one. It holds each scene on its own,
+# so the cut loses no check; it paid for the serving phases and re10k
+# (4 -> 2), then distill (2 -> 1: about 22 s of pose alignment)
+ACCEL_SCENES = 1
 # eval-accel against eval-origin (the same binning, K2 and K4 swapped for
 # their plain versions), per scene: at most twice as far as the plain
 # compositing summed in chunks of 64 rows is from the same in chunks of 128
@@ -353,6 +372,39 @@ RE10K_ALIGN_STEPS = 10
 # the generator's per-splat colour noise is finer than the 2x2 chroma
 # samples, so 4:2:0 loses it (about 33 dB; PIL's files are the same bytes)
 RE10K_PSNR_MIN = 40.0
+# distill: two float32 steps (distill_only, distill) of the committed
+# synthetic_pose student with a small DUSt3R teacher against the JAX
+# package's on the CPU (tools/jax_distill_reference.py). The teacher's
+# weights and the batch are drawn by numpy from the tool's seed, leaf by
+# leaf (the tool's recipe, tests/test_torch_distill.py holds the two equal)
+DISTILL_REF = "vicasplat_tpu_torch/training/reference_distill.json"
+DISTILL_TEACHER = dict(img_size=64, patch_size=16, enc_embed_dim=96, enc_depth=2,
+                       enc_num_heads=4, dec_embed_dim=64, dec_depth=4, dec_num_heads=4)
+DISTILL_SEED = 2026
+# each logged scalar against JAX's: float32 on both sides (TF32 off), the
+# same batch and weights, sums in other orders through the student (K1's
+# float32 route), the teacher (plain attention, cuDNN float32 convolutions)
+# and the render: relative, beside 1e-6 absolute (the PSNR placeholder is 0)
+DISTILL_TOL = 1e-3
+# the distill experiment at full width from re10k's chunks: 3 steps, one in
+# each phase (train.distill_only_steps=1, train.distill_max_steps=1); its
+# batch of 24 from re10k's 4 scenes, whose root is listed 6 times (the
+# loader restarts each pass with the same seed, so a pass must hold 24)
+DISTILL_STEPS = 3
+DISTILL_ROOT_COPIES = 6
+# micro-batches a step (train.accumulate_grad_batches), tried in turn until
+# one fits the card: 1 and 2 ran out of memory at 83.9 GB on an H100 80GB
+# HBM3, so the list starts at 3
+DISTILL_ACCUMULATE = (3, 4, 6)
+# random weights make the norm-free DPT heads' outputs explode: a seeded
+# full-size teacher put points at 1e9 (median norm) and the student at
+# 1e9 with confidences of 4e3 (float32 on a CPU), so Regr3D reached 1e28 on
+# the H100 and the gradients overflowed. The teacher's checkpoint (written in the DUSt3R
+# layout and read by the train mode through the converter) has its heads'
+# last conv scaled by this factor, and the student takes the repository's
+# random-init option encoder.dpt_stabilize=true; points of 1-50 and
+# confidences of 1-5 then give a loss near 1e3
+DISTILL_HEAD_SCALE = 0.1
 # export: the tiny float32 model exported on the CPU (the tests' toy widths:
 # head dim 12, K1's float32 route on the card)
 TINY_EXPORT_NET = dict(img_size=32, patch_size=16, enc_embed_dim=64, enc_depth=2,
@@ -360,8 +412,13 @@ TINY_EXPORT_NET = dict(img_size=32, patch_size=16, enc_embed_dim=64, enc_depth=2
                        use_intrinsic_embedding=True, temporal_rope_theta=30.0)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name, t0, msg):
-    print(f"[{name}] {time.perf_counter() - t0:.2f} s  {msg}", flush=True)
+    """A line of phase `name`: seconds since t0, since the script began, and msg."""
+    now = time.perf_counter()
+    print(f"[{name}] {now - t0:.2f} s (at {now - T_START:.1f} s)  {msg}", flush=True)
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -1380,7 +1437,26 @@ def eval_line(name, t0, smi, r):
 
 def eval_phases(dev, smi, reset_counts, counts, zero, model_acc, flagship_cfg):
     """Phases eval, eval-accel and eval-flagship (see the module's
-    docstring)."""
+    docstring). eval-origin and its rounding floor run in two child
+    processes beside eval and eval-accel, and are stopped whatever happens."""
+    split_dir = ROOT / "build/chip_smoke_eval/split"
+    split_dir.mkdir(parents=True, exist_ok=True)
+    children = {name: subprocess.Popen(
+        [sys.executable, "-m", "vicasplat_tpu_torch.diagnostics.eval_split", "--run",
+         name, "--dir", str(split_dir), "--scenes", str(ACCEL_SCENES)], cwd=ROOT,
+        stdout=subprocess.DEVNULL) for name in ("origin", "origin64")}
+    try:
+        return _eval_phases(dev, smi, reset_counts, counts, zero, model_acc, flagship_cfg,
+                            children, split_dir)
+    finally:
+        for p in children.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _eval_phases(dev, smi, reset_counts, counts, zero, model_acc, flagship_cfg,
+                 children, split_dir):
     from vicasplat_tpu_torch import eval_pose
     from vicasplat_tpu_torch.data.data_module import collate, to_device
     from vicasplat_tpu_torch.data.synthetic_scenes import (
@@ -1472,25 +1548,13 @@ def eval_phases(dev, smi, reset_counts, counts, zero, model_acc, flagship_cfg):
                                       seconds=pose_s, launches=pose_launches))
 
     # ---- eval-accel: K2 and K4 in every render, held to eval per scene;
-    # eval-origin and its rounding floor in two child processes beside it ----
+    # eval-origin and its rounding floor from the two child processes ----
     t0 = time.perf_counter()
-    split_dir = ROOT / "build/chip_smoke_eval/split"
-    split_dir.mkdir(parents=True, exist_ok=True)
-    children = {name: subprocess.Popen(
-        [sys.executable, "-m", "vicasplat_tpu_torch.diagnostics.eval_split", "--run",
-         name, "--dir", str(split_dir), "--scenes", str(ACCEL_SCENES)], cwd=ROOT,
-        stdout=subprocess.DEVNULL) for name in ("origin", "origin64")}
-    try:
-        ra = eval_run(dev, "accel", ["decoder.rasterize.backend=pallas",
-                                     "decoder.rasterize.binning=origin",
-                                     f"dataset.synthetic.n_test_scenes={ACCEL_SCENES}"],
-                      reset_counts, counts, keep_first=True)
-        codes = {name: p.wait(timeout=900) for name, p in children.items()}
-    finally:
-        for p in children.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    ra = eval_run(dev, "accel", ["decoder.rasterize.backend=pallas",
+                                 "decoder.rasterize.binning=origin",
+                                 f"dataset.synthetic.n_test_scenes={ACCEL_SCENES}"],
+                  reset_counts, counts, keep_first=True)
+    codes = {name: p.wait(timeout=900) for name, p in children.items()}
     if any(codes.values()):
         raise AssertionError(f"eval-origin's child processes exited with {codes}")
     split = {name: json.loads((split_dir / f"{name}.json").read_text())
@@ -2094,8 +2158,10 @@ def train_mode_run(dev, argv, reset_counts, counts, keep_batches=()):
     steps, scenes, kept = [], [], {}
     make_step, loader = training.make_train_step, DataModule.train_dataloader
 
-    def spying_make(cfg, model, optimizer, lpips_fn=None):
-        step = make_step(cfg, model, optimizer, lpips_fn)
+    peak = [0]
+
+    def spying_make(cfg, model, optimizer, lpips_fn=None, teacher_fn=None):
+        step = make_step(cfg, model, optimizer, lpips_fn, teacher_fn)
 
         def counted(batch, global_step, phase="full"):
             if global_step in keep_batches:
@@ -2103,11 +2169,15 @@ def train_mode_run(dev, argv, reset_counts, counts, keep_batches=()):
                                      for k, v in batch.items()}
             before = counts()
             torch.cuda.synchronize()
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             logs = step(batch, global_step, phase)
             torch.cuda.synchronize()
             after = counts()
-            steps.append(dict(step=global_step, ms=(time.perf_counter() - t) * 1e3,
+            steps.append(dict(step=global_step, phase=phase,
+                              ms=(time.perf_counter() - t) * 1e3,
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                               nonfinite=int(step.nonfinite),
                               launches={k: after[k] - before[k] for k in after},
                               **{k: float(v) for k, v in logs.items()}))
@@ -2138,13 +2208,15 @@ def train_mode_run(dev, argv, reset_counts, counts, keep_batches=()):
         raise AssertionError("the train mode did not finish its wandb run")
     for st, sc in zip(steps, scenes):
         st["scenes"] = sc
+    # every phase logs these; "distill_only" renders nothing (no mse)
     bad = [st["step"] for st in steps if st["nonfinite"] or not all(
-        math.isfinite(st[k]) for k in ("loss", "mse", "camera", "psnr", "grad_norm"))]
+        math.isfinite(st[k]) for k in ("loss", "camera", "psnr", "grad_norm")
+        + (("mse",) if st["phase"] != "distill_only" else ()))]
     if bad:
         raise AssertionError(f"non-finite losses or gradient entries at steps {bad}")
     return dict(result=result, steps=steps, kept=kept, launches=counts(),
                 wall_s=time.perf_counter() - t,
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                peak_gb=max(peak[0], torch.cuda.max_memory_allocated()) / 1e9)
 
 
 def val_visual_sizes(val: pathlib.Path) -> dict:
@@ -2997,6 +3069,263 @@ def re10k_phase(dev, smi, reset_counts, counts, zero):
     return rec
 
 
+def distill_teacher_leaf(path: str, shape: tuple, seed: int = DISTILL_SEED) -> np.ndarray:
+    """One teacher leaf in the JAX layout by its tree path 'a/b/w'
+    (tools/jax_distill_reference.teacher_leaf's recipe)."""
+    import zlib
+
+    rng = np.random.default_rng([seed, zlib.crc32(path.encode())])
+    name = path.rsplit("/", 1)[-1]
+    if name == "w":
+        window = int(np.prod(shape[:-2])) if len(shape) == 4 else 1
+        std = np.sqrt(2.0 / (window * (shape[-2] + shape[-1])))
+        return rng.normal(0, std, shape).astype(np.float32)
+    if name == "scale":
+        return (1.0 + rng.normal(0, 0.05, shape)).astype(np.float32)
+    return rng.normal(0, 0.02, shape).astype(np.float32)
+
+
+def distill_reference_batch(seed: int = DISTILL_SEED, B: int = 2, T: int = 2, V: int = 2,
+                            hw: int = 64) -> dict:
+    """The reference's batch as float32 numpy
+    (tools/jax_distill_reference.reference_batch's recipe)."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]], np.float32)
+
+    def views(n, first_identity):
+        ext = np.tile(np.eye(4, dtype=np.float32), (B, n, 1, 1))
+        th = rng.uniform(-0.2, 0.2, (B, n))
+        ext[..., 0, 0], ext[..., 0, 2] = np.cos(th), np.sin(th)
+        ext[..., 2, 0], ext[..., 2, 2] = -np.sin(th), np.cos(th)
+        ext[..., :3, 3] = rng.normal(0, 0.2, (B, n, 3))
+        if first_identity:
+            ext[:, 0] = np.eye(4, dtype=np.float32)
+        return {"image": rng.uniform(0, 1, (B, n, hw, hw, 3)).astype(np.float32),
+                "intrinsics": np.tile(K, (B, n, 1, 1)), "extrinsics": ext,
+                "near": np.full((B, n), 0.5, np.float32),
+                "far": np.full((B, n), 100.0, np.float32)}
+
+    return {"context": views(T, True), "target": views(V, False)}
+
+
+def distill_teacher(dev, seed: int = DISTILL_SEED):
+    """The reference's small teacher on the card, its leaves drawn by
+    `distill_teacher_leaf` through the port's JAX leaf specs."""
+    from vicasplat_tpu_torch.models.dust3r import Dust3R, Dust3RConfig
+    from vicasplat_tpu_torch.utils.checkpointing import from_jax_leaves, jax_leaf_specs
+
+    with torch.device(dev):
+        model = Dust3R(Dust3RConfig(**DISTILL_TEACHER))
+    leaves = [distill_teacher_leaf("/".join(path), shape, seed)
+              for path, shape in jax_leaf_specs(model)]
+    model.load_state_dict(from_jax_leaves(model, leaves, dict(model.named_parameters())))
+    return model
+
+
+def distill_reference_steps(dev, reset_counts=lambda: None, counts=dict) -> list:
+    """Two float32 steps of the reference's student (the committed
+    synthetic_pose weights) and teacher on `dev`: [(JAX's logs, phase,
+    the port's logs, launches)] a step."""
+    from vicasplat_tpu_torch import main as tmain
+    from vicasplat_tpu_torch.models.dust3r import make_teacher_fn
+    from vicasplat_tpu_torch.training import make_train_step
+    from vicasplat_tpu_torch.training.step import pick_phase
+    from vicasplat_tpu_torch.utils.config import parse_cli
+
+    dev = torch.device(dev)
+    ref = json.loads((ROOT / DISTILL_REF).read_text())
+    if ref["teacher"] != DISTILL_TEACHER or ref["seed"] != DISTILL_SEED:
+        raise AssertionError(f"{DISTILL_REF} was made for another teacher or seed")
+    cfg = parse_cli(["+experiment=synthetic_pose", *ref["overrides"],
+                     f"checkpointing.load={ROOT / EVAL_NPZ}"])
+    train_cfg, model, opt = tmain.build_all(cfg, dev)
+    step = make_train_step(train_cfg, model, opt,
+                           teacher_fn=make_teacher_fn(distill_teacher(dev), torch.float32))
+    batch = {k: {n: torch.from_numpy(x).to(dev) for n, x in v.items()}
+             for k, v in distill_reference_batch().items()}
+    out = []
+    for want in ref["steps"]:
+        ph = pick_phase(train_cfg, want["step"], True)
+        reset_counts()
+        logs = step(batch, want["step"], ph)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out.append((want, ph, {k: float(v) for k, v in logs.items()}, counts()))
+    return out
+
+
+def distill_gaps(want: dict, ph: str, got: dict):
+    """(relative gaps, the scalars off by more than DISTILL_TOL) of one
+    step's logs against JAX's; a phase or a set of logs that differs is
+    off as a whole."""
+    keys = [k for k in want if k not in ("step", "phase")]
+    if ph != want["phase"] or sorted(got) != sorted(keys):
+        return {}, [f"phase {ph}, logs {sorted(got)}; JAX's {want['phase']}, {keys}"]
+    gaps = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in keys}
+    return gaps, [k for k in keys
+                  if not abs(got[k] - want[k]) <= DISTILL_TOL * abs(want[k]) + 1e-6]
+
+
+def distill_reference_run(dev, reset_counts, counts, zero) -> dict:
+    """The float32 reference on the card, each logged scalar held to the JAX
+    package's (DISTILL_TOL); K1's float32 route 4 + 4 a step (the student's
+    4 decoder blocks, no remat)."""
+    out = []
+    for want, ph, got, launches in distill_reference_steps(dev, reset_counts, counts):
+        i = want["step"]
+        expect_launches(f"distill reference step {i}", launches,
+                        dict(zero, flash_attn_f32=4, flash_attn_f32_bwd=4))
+        gaps, bad = distill_gaps(want, ph, got)
+        if bad:
+            raise AssertionError(f"distill reference step {i} ({ph}): {bad} off, port {got}, "
+                                 f"JAX {want}")
+        out.append(dict(step=i, phase=ph, port=got, jax={k: want[k] for k in gaps},
+                        rel_gaps=gaps, launches=launches))
+    torch.cuda.empty_cache()
+    return {"steps": out}
+
+
+def distill_phase(dev, smi, reset_counts, counts, zero):
+    """Phase distill (see the module's docstring)."""
+    import gc
+    import shutil
+
+    import torch.nn.functional as F
+
+    from vicasplat_tpu_torch.kernels import flash_attn
+    from vicasplat_tpu_torch.kernels.flash_attn import (
+        attention_backward_reference,
+        attention_lse_reference,
+        attention_reference,
+        flash_attention_backward,
+    )
+    from vicasplat_tpu_torch.models import VicaNetConfig, dust3r
+    from vicasplat_tpu_torch.models.dust3r import Dust3RConfig, init_dust3r, make_teacher_fn
+    from vicasplat_tpu_torch.utils.ckpt_convert import export_dust3r_state_dict
+
+    t0 = time.perf_counter()
+    rec = {"reference": distill_reference_run(dev, reset_counts, counts, zero)}
+    for st in rec["reference"]["steps"]:
+        phase("distill", t0, f"[{smi}] float32 reference, step {st['step']} ({st['phase']}), "
+              "port (JAX): " + ", ".join(f"{k} {st['port'][k]:.6f} ({st['jax'][k]:.6f})"
+                                         for k in sorted(st["jax"]))
+              + "; largest relative gap " + f"{max(st['rel_gaps'].values()):.2e} "
+              f"(tol {DISTILL_TOL}); launches {st['launches']}")
+
+    dec_depth = VicaNetConfig().dec_depth
+    chunks = ROOT / "build/chip_smoke_re10k/re10k"
+    out = ROOT / "build/chip_smoke_distill"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    # the teacher's checkpoint: the full-size DUSt3R from a seeded generator,
+    # its heads' last conv scaled, in the DUSt3R layout (bf16 to halve the
+    # write); the train mode reads it through $DISTILLER_CKPT
+    t1 = time.perf_counter()
+    teacher = init_dust3r(Dust3RConfig(img_size=256), torch.Generator(dev).manual_seed(1), dev)
+    with torch.no_grad():
+        for head in (teacher.head1, teacher.head2):
+            head.head["conv3"].weight.mul_(DISTILL_HEAD_SCALE)
+    state = {k: v.to(torch.bfloat16) for k, v in teacher.state_dict().items()}
+    ckpt = out / "mast3r.ckpt"
+    torch.save({"model": export_dust3r_state_dict(state)}, ckpt)
+    n_teacher = sum(v.numel() for v in state.values())
+    probe = {k: state[k].float().cpu() for k in ("head1.head.conv3.weight",
+                                                 "dec_blocks2.11.cross_attn.projv.weight")}
+    del teacher, state
+    phase("distill", t0, f"teacher checkpoint: {n_teacher} parameters, "
+          f"{ckpt.stat().st_size} bytes, written in {time.perf_counter() - t1:.1f} s")
+    loaded = []
+
+    def keep_teacher(model, dtype):
+        loaded.append({k: model.state_dict()[k].float().cpu() for k in probe})
+        return make_teacher_fn(model, dtype)
+
+    seen = []
+
+    def spy(ctx, do):  # K1's backward on the first call's own inputs
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        if not seen:
+            seen.append(tuple(x.detach().clone() for x in (q, k, v, o, lse, do)))
+        return flash_attention_backward(q, k, v, o, lse, do)
+
+    roots = "[" + ",".join([str(chunks)] * DISTILL_ROOT_COPIES) + "]"
+    cuts = []
+    for A in DISTILL_ACCUMULATE:
+        shutil.rmtree(out / "run", ignore_errors=True)
+        argv = ["+experiment=distill", "mode=train", f"dataset.re10k.roots={roots}",
+                f"trainer.max_steps={DISTILL_STEPS}", "train.distill_only_steps=1",
+                "train.distill_max_steps=1", f"train.accumulate_grad_batches={A}",
+                "encoder.dpt_stabilize=true",
+                "train.print_log_every_n_steps=1", "trainer.val_check_interval=0",
+                f"output_dir={out}/run", f"checkpointing.output_dir={out}/run/ckpts",
+                "wandb.mode=disabled"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            seen.clear()
+            with mock.patch.dict(os.environ, {"DISTILLER_CKPT": str(ckpt)}), \
+                    mock.patch.object(dust3r, "make_teacher_fn", keep_teacher), \
+                    mock.patch.object(flash_attn._FlashAttention, "backward",
+                                      staticmethod(spy)):
+                tr = train_mode_run(dev, argv, reset_counts, counts)
+            break
+        except torch.cuda.OutOfMemoryError:
+            cuts.append(f"{A} micro-batches of {24 // A}: out of memory, peak "
+                        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+            phase("distill", t0, "split: " + cuts[-1])
+    else:
+        raise AssertionError(f"the distill step fits in no split: {cuts}")
+    if not loaded or any(not torch.equal(loaded[-1][k], probe[k]) for k in probe):
+        raise AssertionError("the train mode's teacher is not the checkpoint's")
+    steps = tr["steps"]
+    phases = [st["phase"] for st in steps]
+    if phases != ["distill_only", "distill", "full"]:
+        raise AssertionError(f"distill train mode phases {phases}")
+    terms = [("distillation" in st, "mse" in st) for st in steps]
+    if terms != [(True, False), (True, True), (False, True)]:
+        raise AssertionError(f"distill train mode (distillation, mse) logged {terms}")
+    for st in steps:
+        expect_launches(f"distill train step {st['step']}", st["launches"],
+                        dict(zero, flash_attn=2 * dec_depth * A, flash_attn_bwd=dec_depth * A))
+    for st in steps:
+        phase("distill", t0, f"[{smi}] distill experiment, step {st['step']} ({st['phase']}): "
+              f"{st['ms']:.1f} ms, peak {st['peak_gb']:.1f} GB, losses "
+              + ", ".join(f"{k} {st[k]:.5f}" for k in ("loss", "camera", "distillation", "mse",
+                                                       "psnr", "grad_norm") if k in st)
+              + f", launches {st['launches']}")
+    phase("distill", t0, f"[{smi}] distill experiment at full width from re10k's chunks, "
+          f"the teacher from {ckpt.name} through the converter: batch 24 (2 context, 4 "
+          f"targets, 256^2) as {A} micro-batches of {24 // A}; splits that ran out of "
+          f"memory {cuts or 'none'}; scenes {steps[0]['scenes']}; run "
+          f"{tr['wall_s']:.1f} s, peak {tr['peak_gb']:.1f} GB")
+    rec["train"] = dict(accumulate=A, splits=cuts, wall_s=tr["wall_s"], peak_gb=tr["peak_gb"],
+                        teacher_parameters=n_teacher,
+                        steps=[{k: v for k, v in st.items() if k != "scenes"} for st in steps])
+    del tr
+    # K1 at this path's own shape (q 2 x 257 rows a micro-batch example, a
+    # last q tile of 2 rows), forward and backward, on the first call's inputs
+    q, k, v, o, lse, do = seen.pop()
+    rec["k1"] = flash_phase(dev, {"distill": [(q, k, v)]})["distill"]
+    xs = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    lib = torch.autograd.grad(F.scaled_dot_product_attention(*xs), xs, do.transpose(1, 2))
+    rec["k1_bwd"] = flash_bwd_errors(
+        "K1 backward on the distill step's inputs", flash_attention_backward(q, k, v, o, lse, do),
+        attention_backward_reference(q, k, v, attention_reference(q, k, v),
+                                     attention_lse_reference(q, k), do), lib)
+    phase("distill", t0, f"K1 on the first step's own inputs, {rec['k1']['shape']}: forward "
+          f"max abs err {rec['k1']['max_abs_err']:.3e} (tol {FLASH_TOL}); backward relative "
+          "errors " + ", ".join(
+              f"{nm} {e['rel']:.2e} (tol {2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})"
+              for nm, e in rec["k1_bwd"].items()))
+    del q, k, v, o, lse, do, xs, lib
+    shutil.rmtree(out, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3335,6 +3664,7 @@ def main():
     serve_trained = serve_trained_phase(dev, smi, reset_counts, counts)
     train_mode = train_mode_phase(dev, smi, reset_counts, counts, zero)
     re10k = re10k_phase(dev, smi, reset_counts, counts, zero)
+    distill = distill_phase(dev, smi, reset_counts, counts, zero)
 
     def entry(name, replaces, r, launches=None, source=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3394,6 +3724,11 @@ def main():
                  # the re10k_8view train step from chunks, and its test mode
                  "re10k_launches": {"train_step": re10k["train"]["steps"][-1]["launches"],
                                     "test": re10k["test"]["launches"]},
+                 # the distill experiment's three steps, one in each phase
+                 "distill_launches": [st["launches"] for st in distill["train"]["steps"]],
+                 # K1 at the distill step's shape, on its own inputs
+                 "flash_attn_distill": distill["k1"],
+                 "flash_attn_bwd_distill": distill["k1_bwd"],
                  "export_launches": {k: exported["child"][k]["profiled"]
                                      for k in ("reconstruct", "render", "tiny")}},
         "train": {k: train[k] for k in ("batch", "targets", "cuts", "train_step_ms",
@@ -3414,6 +3749,7 @@ def main():
         "serve_trained": serve_trained,
         "train_mode": train_mode,
         "re10k": re10k,
+        "distill": distill,
         "wall_s": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

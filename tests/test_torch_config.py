@@ -163,7 +163,7 @@ def test_load_weights_refuses_other_formats_and_configs(tmp_path):
     model = init_vicasplat(tcfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         checkpointing.load_weights(tmp_path, model)  # an orbax directory
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):  # a PyTorch checkpoint, read by the converter
         checkpointing.load_weights(tmp_path / "re10k_8view.ckpt", model)
     other = init_vicasplat(dataclasses.replace(tcfg, backbone=dataclasses.replace(
         tcfg.backbone, use_framewise_modulation=False)), torch.Generator().manual_seed(0), "cpu")

@@ -27,7 +27,7 @@ from vicasplat_tpu_torch.data.data_module import DataModule, _build_dataset, col
 from vicasplat_tpu_torch.evaluation import nvs_eval as tnvs
 from vicasplat_tpu_torch.evaluation import pose_evaluator as tpose
 from vicasplat_tpu_torch.models import vicasplat_forward
-from vicasplat_tpu_torch.utils.config import load_config
+from vicasplat_tpu_torch.utils.config import load_config, parse_cli
 
 torch.set_num_threads(1)
 
@@ -305,10 +305,8 @@ def test_main_test_mode_writes_the_jax_outputs(tmp_path):
     assert sorted(bench["encoder"]) == sorted(jbench["encoder"])
     assert (out / "peak_memory.json").exists()
     assert (out / "synthetic_04100" / "compare.png").exists()
-    # the train mode is ported; distillation still raises, naming ROADMAP.md
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmain.main(["+experiment=synthetic_pose", "mode=train", "train.distiller=dust3r"],
-                   device="cpu")
+    # no teacher without train.distiller (distillation: tests/test_torch_distill*.py)
+    assert tmain._maybe_distiller(parse_cli(["+experiment=synthetic_pose"]), "cpu") is None
 
 
 def test_eval_pose_cli(tmp_path):

@@ -494,7 +494,7 @@ def test_train_loop_matches_jax(tmp_path):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=PARAM_TOL)
 
 
-def test_main_train_mode_end_to_end(tmp_path):
+def test_main_train_mode_end_to_end(tmp_path, monkeypatch):
     """main([... mode=train ...]) on the CPU: a profiler trace of the first
     step, the offline logger's run directory (config, history of every
     step's scalars, summary, the validation image), the validation grid,
@@ -534,8 +534,19 @@ def test_main_train_mode_end_to_end(tmp_path):
          "test.pose_align_steps=1", f"checkpointing.load={snap}",
          f"test.output_path={tmp_path / 'eval'}"], device="cpu")
     assert len(results) == 1 and np.isfinite(summary["psnr"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmain.main([*args, "train.distiller=dust3r"], device="cpu")
+    # distillation through main(): one "distill_only" step with a toy
+    # teacher (random: no checkpoint); the phases in tests/test_torch_distill*.py
+    from vicasplat_tpu_torch.models.dust3r import Dust3RConfig
+
+    monkeypatch.setattr(tmain, "teacher_config", lambda cfg: Dust3RConfig(
+        img_size=32, enc_embed_dim=64, enc_depth=1, enc_num_heads=4, dec_embed_dim=48,
+        dec_depth=2, dec_num_heads=4))
+    monkeypatch.setenv("DISTILLER_CKPT", str(tmp_path / "none.ckpt"))
+    r3 = tmain.main([*args, "trainer.max_steps=1", "train.distiller=dust3r",
+                     "train.distill_only_steps=1", f"output_dir={tmp_path / 'distill'}",
+                     f"checkpointing.output_dir={tmp_path / 'distill/ckpts'}"], device="cpu")
+    assert [x["step"] for x in r3["logs"]] == [1]
+    assert "distillation" in r3["logs"][0] and "mse" not in r3["logs"][0]
 
 
 @pytest.mark.parametrize("mode", ["offline", "disabled"])

@@ -243,8 +243,10 @@ def test_lr_multipliers_match_jax():
 
 
 def test_distill_phases_raise():
+    """The distillation phases need a teacher, and a phase must be one of
+    the three (the phases themselves: tests/test_torch_distill*.py)."""
     cfg = TrainConfig()
     assert pick_phase(cfg, 0, has_teacher=False) == "full"
-    with pytest.raises(NotImplementedError):
-        compute_loss(None, cfg, {"context": {}, "target": {}}, 0,
-                     phase="distill")
+    for phase in ("distill", "distill_only", "bogus"):
+        with pytest.raises(ValueError, match="teacher" if "distill" in phase else "one of"):
+            compute_loss(None, cfg, {"context": {}, "target": {}}, 0, phase=phase)

@@ -80,3 +80,9 @@ def sample_image_grid(shape: tuple, dtype=torch.float32, device=None):
     y = (row.to(dtype) + 0.5) / h
     yy, xx = torch.meshgrid(y, x, indexing="ij")
     return torch.stack([xx, yy], dim=-1), torch.stack([ii, jj], dim=-1)
+
+
+def get_local_rays(coordinates, intrinsics):
+    """Normalized pixel coordinates -> unit camera-space ray directions."""
+    directions = unproject(coordinates, torch.ones_like(coordinates[..., 0]), intrinsics)
+    return directions / torch.linalg.vector_norm(directions, dim=-1, keepdim=True)

@@ -1,6 +1,7 @@
 """Training losses (port of vicasplat_tpu/loss/losses.py): mse, the camera
 pose losses, translation direction, depth smoothness and the flagship's
-total. SSIM, LPIPS and the distillation's conf_point are not ported."""
+total. SSIM is in loss/ssim.py, LPIPS in loss/lpips.py and the
+distillation's Regr3D in loss/conf_point.py."""
 from __future__ import annotations
 
 import dataclasses

@@ -12,8 +12,10 @@ logger's scalars every `train.print_log_every_n_steps`, a checkpoint every
 `checkpointing.every_n_train_steps` (weights only, or with
 `save_weights_only: false` the full state), validation visuals every
 `trainer.val_check_interval`, and a resume from the newest checkpoint with
-`checkpointing.resume=true`. Distillation is not ported
-(`train.distiller` raises).
+`checkpointing.resume=true`. With `train.distiller` set (the `distill`
+experiment), a frozen DUSt3R teacher (`_maybe_distiller`) joins the step:
+"distill_only" before `train.distill_only_steps`, "distill" up to
+`train.distill_max_steps`, then "full" (`training.step.pick_phase`).
 
 Test (`test`, JAX `:364-505`): per scene of the test split, encode the
 context (bf16 over float32 weights), align the target poses, render and
@@ -90,14 +92,42 @@ def _maybe_lpips(cfg, device="cuda"):
         return None
 
 
-def _maybe_distiller(cfg):
-    """The frozen teacher of the distillation stage: not ported."""
-    if cfg.train.distiller:
-        raise NotImplementedError(
-            f"train.distiller={cfg.train.distiller!r}: distillation (the DUSt3R "
-            "teacher, Regr3D and the distill forward) is not ported yet "
-            "(ROADMAP.md §1 item 5b); run with train.distiller=''")
-    return None
+def teacher_config(cfg):
+    """The teacher's widths: DUSt3R's ViT-L encoder and two 12 x 768
+    decoders, at the student's image size (JAX `main.py:321`)."""
+    from .models.dust3r import Dust3RConfig
+
+    return Dust3RConfig(img_size=cfg.encoder.backbone.img_size)
+
+
+def _maybe_distiller(cfg, device="cuda"):
+    """The frozen teacher of the distillation stage (JAX `main.py:303-340`)
+    when `train.distiller` names one, else None: the DUSt3R / MASt3R
+    checkpoint at `$DISTILLER_CKPT` or `checkpoints/<distiller>.ckpt`
+    through `utils/ckpt_convert`, or, when the file is missing, random
+    weights from a generator seeded 1, with the JAX package's warning. The
+    teacher computes in bf16 over float32 weights, as JAX's does."""
+    if not cfg.train.distiller:
+        return None
+    import os
+
+    from .models.dust3r import Dust3R, init_dust3r, make_teacher_fn
+    from .utils.ckpt_convert import convert_dust3r_state_dict, read_torch_checkpoint
+
+    path = pathlib.Path(os.environ.get("DISTILLER_CKPT",
+                                       f"checkpoints/{cfg.train.distiller}.ckpt"))
+    d_cfg = teacher_config(cfg)
+    if path.exists():
+        with torch.device(device):
+            model = Dust3R(d_cfg)
+        model.load_state_dict(convert_dust3r_state_dict(read_torch_checkpoint(path)),
+                              strict=True)
+        print(f"loaded distiller weights from {path}")
+    else:
+        print(f"WARNING: distiller checkpoint {path} missing — "
+              "using random teacher weights (distillation will be meaningless)")
+        model = init_dust3r(d_cfg, torch.Generator(device).manual_seed(1), device)
+    return make_teacher_fn(model, dtype=torch.bfloat16)
 
 
 def train(cfg, device="cuda"):
@@ -111,7 +141,6 @@ def train(cfg, device="cuda"):
     from .utils.loggers import make_logger
     from .utils.step_tracker import StepTracker
 
-    teacher_fn = _maybe_distiller(cfg)  # raises before anything is built
     train_cfg, model, optimizer = build_all(cfg, device)
     step_tracker = StepTracker()
     dm = DataModule(cfg.dataset, cfg.data_loader, step_tracker, device=device)
@@ -126,7 +155,9 @@ def train(cfg, device="cuda"):
             start_step = restore_train_state(latest, model, optimizer)
             print(f"resumed full train state from {latest} at step {start_step}")
     lpips_fn = _maybe_lpips(cfg, device)
-    step_fn = make_train_step(train_cfg, model, optimizer, lpips_fn=lpips_fn)
+    teacher_fn = _maybe_distiller(cfg, device)
+    step_fn = make_train_step(train_cfg, model, optimizer, lpips_fn=lpips_fn,
+                              teacher_fn=teacher_fn)
     writer = make_logger(cfg)
 
     def save_ckpt(step):

@@ -168,12 +168,11 @@ def vicasplat_forward(model: VicaSplat, context: dict, global_step: int = 0, *,
 
     `remat` recomputes each backbone block in the backward
     (`torch.utils.checkpoint`); `remat_policy="dots"` keeps the linear
-    layers' products. `distill` and `compute_viewspace_depth` serve the
-    distillation phases, whose teacher is not ported: they raise."""
-    if distill or compute_viewspace_depth:
-        raise NotImplementedError(
-            "distill and compute_viewspace_depth wait for the distillation "
-            "teacher, which is not ported")
+    layers' products. `distill=True` (the distill_only phase) returns after
+    the centre head, without the Gaussian-parameter head and the adapter;
+    `compute_viewspace_depth=True` adds `context_view_depths` (B, T, H, W),
+    the z of R^-1 (p - t) in each context camera (c2w `extrinsics` of the
+    context), else None."""
     cfg = model.cfg
     bb = cfg.backbone
     images = context["image"]
@@ -228,6 +227,19 @@ def vicasplat_forward(model: VicaSplat, context: dict, global_step: int = 0, *,
     conf = (postprocess_conf_exp(center_out[..., 3]).reshape(B, T, H, W)
             if cfg.predict_conf else None)
 
+    viewspace_depth = None
+    if compute_viewspace_depth and "extrinsics" in context:
+        ext = context["extrinsics"]
+        rel = gs_centers - ext[:, :, None, None, :3, 3]
+        viewspace_depth = torch.einsum("btji,bthwj->bthwi", ext[:, :, :3, :3],
+                                       rel)[..., 2]
+    if distill:
+        return dict(pred_extrins=pred_extrins, pred_intrins=pred_intrins,
+                    gaussian_camera_extrins=extrinsics_4x4,
+                    gaussian_camera_intrins=intrinsics_3x3,
+                    gaussian_centers=gs_centers, confidence=conf,
+                    context_view_depths=viewspace_depth)
+
     if cfg.gs_param_head_type in ("dpt", "dpt_gs"):
         gs_params_out = dpt_gs_head(model.gaussian_param_head, hook_tokens,
                                     grid_hw, head_images, dtype)
@@ -251,6 +263,7 @@ def vicasplat_forward(model: VicaSplat, context: dict, global_step: int = 0, *,
         gaussian_camera_intrins=intrinsics_3x3,
         gaussian_centers=gs_centers,
         confidence=conf,
+        context_view_depths=viewspace_depth,
     )
 
 

@@ -20,8 +20,10 @@ so the JAX side reads these files as it reads the committed one
   parameters' leaf order and layout, in float32. A bfloat16 first moment
   widens to float32 exactly and narrows back exactly, so a restore is
   exact bit for bit.
-`load_weights` reads the parameters of either kind; `restore_train_state`
-needs the full state.
+`load_weights` reads the parameters of either kind, and of a PyTorch
+checkpoint in the reference's layout (utils/ckpt_convert.py);
+`restore_train_state` needs the full state, and takes any other file as
+weights only.
 """
 from __future__ import annotations
 
@@ -218,18 +220,20 @@ class CheckpointManager:
         return ckpts[-1] if ckpts else None
 
 
-def _check_npz(path) -> pathlib.Path:
+def _check_path(path) -> pathlib.Path:
     p = pathlib.Path(path)
     if p.is_dir():
         raise NotImplementedError(
             f"{path}: orbax checkpoint directories are not read by the port, which "
             "writes its own npz checkpoints (orbax is not one of its dependencies; "
             "ROADMAP.md §1 item 1); pass an .npz checkpoint")
-    if p.suffix != ".npz":
-        raise NotImplementedError(
-            f"{path}: a torch .ckpt needs the JAX package's utils/ckpt_convert.py, "
-            "not ported yet (ROADMAP.md §1 item 7); pass an .npz checkpoint")
     return p
+
+
+def _is_npz(p: pathlib.Path) -> bool:
+    """An npz of this module's layout; any other file is a PyTorch
+    checkpoint of the reference's layout (utils/ckpt_convert.py)."""
+    return p.suffix == ".npz"
 
 
 def _read_leaves(z, prefix: str, specs: list, path) -> list:
@@ -248,7 +252,10 @@ def _read_leaves(z, prefix: str, specs: list, path) -> list:
 
 
 def is_full_state(path) -> bool:
-    with np.load(_check_npz(path)) as z:
+    p = _check_path(path)
+    if not _is_npz(p):
+        return False
+    with np.load(p) as z:
         return "_count" in z.files
 
 
@@ -258,7 +265,7 @@ def restore_train_state(path, model: nn.Module, optimizer) -> int:
     snapshot loads its weights, leaves the optimizer as it is and returns 0,
     with a warning (JAX `restore_train_state`'s fallback); any other failure
     raises."""
-    p = _check_npz(path)
+    p = _check_path(path)
     if not is_full_state(p):
         print(f"WARNING: {path} is a weights-only snapshot; restoring its "
               "weights, optimizer state and step reset", flush=True)
@@ -292,7 +299,9 @@ def restore_train_state(path, model: nn.Module, optimizer) -> int:
 def load_ema(path, model: nn.Module) -> bool:
     """Load the EMA of a full-state checkpoint into `model` as its weights;
     False (nothing loaded) when the file has none."""
-    p = _check_npz(path)
+    p = _check_path(path)
+    if not _is_npz(p):
+        return False
     with np.load(p) as z:
         if not any(k.startswith("ema_") for k in z.files):
             return False
@@ -317,8 +326,17 @@ def load_weights(path, model: nn.Module) -> dict:
     snapshot, or either kind this module writes) into `model` (strict:
     every leaf count, name and shape is checked) and return its metadata
     (`total_steps`, `segment`). Leaves are cast to float32; the load copies
-    them to each parameter's device and dtype."""
-    p = _check_npz(path)
+    them to each parameter's device and dtype. Any other file is read as a
+    PyTorch checkpoint of the reference's layout (a Lightning `.ckpt`, or a
+    DUSt3R / MASt3R one) through `ckpt_convert.load_torch_checkpoint`,
+    strictly, with no metadata, as the JAX package's `load_weights` reads
+    it."""
+    p = _check_path(path)
+    if not _is_npz(p):
+        from .ckpt_convert import load_torch_checkpoint
+
+        model.load_state_dict(load_torch_checkpoint(p), strict=True)
+        return {}
     specs = jax_leaf_specs(model)
     tree = {}
     with np.load(p) as z:

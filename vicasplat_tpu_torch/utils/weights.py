@@ -2,8 +2,9 @@
 
 The port's modules carry the JAX tree's names, so a key is the tree path
 joined by dots, with three rules:
-- stacked blocks (`enc_blocks`, `dec_blocks`, leading depth axis) become
-  `ModuleList` entries: `enc_blocks.<i>.<...>`;
+- stacked blocks (`enc_blocks`, `dec_blocks`, and the DUSt3R teacher's
+  `dec_blocks2`; leading depth axis) become `ModuleList` entries:
+  `enc_blocks.<i>.<...>`;
 - a linear kernel `w` (in, out) becomes `weight` (out, in); a conv kernel
   `w` (kh, kw, in, out), and a transposed-conv kernel (kh, kw, out, in),
   become `weight` (out, in, kh, kw) and (in, out, kh, kw): one permutation;
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-STACKED = ("enc_blocks", "dec_blocks")
+STACKED = ("enc_blocks", "dec_blocks", "dec_blocks2")
 
 
 def _map(fn, tree):
