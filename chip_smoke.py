@@ -108,7 +108,10 @@ Phases, each printing lines with their seconds:
             captured once and replayed by each window); all in a temporary
             directory, deleted after;
   export    torch.export of the accelerator engine's reconstruct (1 x 8 x
-            256^2, bf16) and 12-view render on the card, the artifacts
+            256^2, bf16) and 12-view render on the card by two processes
+            that run beside demo and the phases after it up to train
+            (host work, one intra-op thread each; the loading child below
+            starts as soon as both are done), the artifacts
             saved and loaded in a child process that imports torch and the
             port's kernels and never its models, called with the engine's
             weights (arguments, not stored): K1 12 + K3 1 and K2 12 + K4 12
@@ -208,6 +211,33 @@ Phases, each printing lines with their seconds:
             micro-batches as fit the card: each step's phase, losses (the
             distillation term in the first two only, finite), K1's launches
             (24 + 12 a micro-batch), milliseconds and peak memory.
+  parallel  the last modules of the JAX tree, in this process on a world-1
+            NCCL group: the MoE flagship (re10k_8view's widths with 8
+            experts, top-2, capacity factor 1.25, seeded random weights),
+            its bf16 forward of 8 x 256^2 and 12-view render in the default
+            and the accelerator configuration with exact launches (K1 12;
+            K1 12, K3 1, K2 12, K4 12), milliseconds and peak memory, and
+            the einsum dispatch against the index dispatch within the
+            plain-k1 rule; every route at world 1 against the call it
+            wraps: the view-sharded render, expert parallelism, sequence,
+            pipeline (one stage) and tensor parallelism (their forwards
+            within the plain-k1 rule), the DDP and FSDP2 steps of
+            synthetic_pose (loss equal, gradient norms within
+            FLASH_BWD_FLOOR); the MoE flagship's train step at batch 2 with
+            12 targets (1 warm-up and 2 timed steps, K1 24 + 12 backward a
+            step; E 4 if E 8 does not fit, printed with its peak); a world-2
+            DDP step of synthetic_pose at batch 8 by two child processes
+            both on cuda:0 over gloo, against the world-1 step in two
+            micro-batches of 4 (and printed against one pass of 8), the
+            replicas equal; beside it the brute-force render oracle against
+            the default and the accelerator render on the CPU test's scene
+            and on the render phase's 1,000-splat scene at dup (4, 4), where
+            nothing is truncated (both within the CPU test's tolerances; on
+            the latter the oracle gives each splat the tiles of its 3-sigma
+            rect, as the tiled render does), and on the covering scene (the
+            gaps printed); the memory reckoning of
+            parallel/memory_proof.py (dp8, fsdp8, pp4xdp2) beside the peak of
+            the world-1 flagship step at batch 1.
 Then a JSON line of kernels, the nvidia-smi line, and the result line.
 Float32 convolutions run in full float32 (cudnn.allow_tf32 = False), since
 K3's plain version is the reference.
@@ -226,6 +256,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -410,6 +441,24 @@ DISTILL_HEAD_SCALE = 0.1
 TINY_EXPORT_NET = dict(img_size=32, patch_size=16, enc_embed_dim=64, enc_depth=2,
                        enc_num_heads=4, dec_embed_dim=48, dec_depth=4, dec_num_heads=4,
                        use_intrinsic_embedding=True, temporal_rope_theta=30.0)
+# parallel: the MoE flagship (re10k_8view's widths, MoE decoder MLPs), and
+# its train step's target views (the train phase's 12)
+MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY = 8, 2, 1.25
+MOE_TARGETS = 12
+# the DDP steps: synthetic_pose at batch 8 (4 a rank at world 2), at a step
+# of its 200-step warm-up where the learning rate is not 0
+DDP_BATCH = 8
+DDP_STEP = 100
+# a step against the same step on another route: the loss is the same
+# arithmetic (relative); the gradients' norms and each parameter group's
+# norm within FLASH_BWD_FLOOR (the k1-bwd rule's floor: the render's
+# backward adds by atomics, in another order each run)
+STEP_TOL = 1e-6
+# the tiled render against the brute-force oracle on the CPU test's scene:
+# its own tolerances (tests/test_torch_raster_reference.py, after JAX's
+# tests/test_rasterizer.py); the covering scene's oracle in chunks of pixels
+ORACLE_TOL = {"color": 2e-3, "depth": 2e-2, "alpha": 2e-3}
+ORACLE_CHUNK = 512
 
 
 T_START = time.perf_counter()
@@ -2714,7 +2763,7 @@ def export_start(dev, model_acc, dec_acc) -> dict:
     engine's outputs to compare with, the weights and inputs saved, and two
     fresh processes started that export the reconstruct and the 12-view
     render (and a tiny float32 model on the CPU); they run beside the demo
-    phase."""
+    phase and the next ones up to train."""
     import tempfile
 
     from vicasplat_tpu_torch import export, serving
@@ -2749,11 +2798,28 @@ def export_start(dev, model_acc, dec_acc) -> dict:
     torch.save((gd, tgt_ext, tgt_K, near, far), d / "render_args.pt")
     del w, g, gd, rendered, eng
     torch.cuda.empty_cache()
-    st["env"] = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one intra-op thread each: the children's tracing and loading is host
+    # work beside the phases that follow
+    st["env"] = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     for which in ("reconstruct", "render"):
         st["procs"][which] = start_child(d, which, [EXPORT_TRACE_CHILD, str(d), which],
                                          st["env"])
     st["children_t0"] = time.perf_counter()
+
+    def chain():
+        """Start the loading child as soon as both exporters are done."""
+        try:
+            st["traced"] = {w: wait_child(st, w) for w in ("reconstruct", "render")}
+            st["exporters_s"] = time.perf_counter() - st["children_t0"]
+            st["load_t0"] = time.perf_counter()
+            st["procs"]["load"] = start_child(d, "load", [EXPORT_CHILD, str(d),
+                                                          json.dumps(KERNEL_SYMBOLS)],
+                                              st["env"])
+        except Exception as e:  # raised again by export_finish
+            st["chain_error"] = e
+
+    st["chain"] = threading.Thread(target=chain, daemon=True)
+    st["chain"].start()
     return st
 
 
@@ -2786,22 +2852,23 @@ def export_stop(st: dict):
 
 
 def export_finish(st: dict, smi) -> dict:
-    """Phase export, second half: wait for the two exporting processes,
-    then load and call the artifacts in a child that never imports the
-    model code; hold its kernels and outputs against the eager engine's."""
+    """Phase export, second half: wait for the child that loaded and called
+    the artifacts (started by export_start's thread once both exporters were
+    done) and that never imports the model code; hold its kernels and
+    outputs against the eager engine's."""
     d, V = st["dir"], st["V"]
-    traced = {which: wait_child(st, which) for which in ("reconstruct", "render")}
+    st["chain"].join()
+    if "chain_error" in st:
+        raise st["chain_error"]
+    traced = st["traced"]
     res = {"trace_s_reconstruct": traced["reconstruct"]["trace_s"],
            "trace_s_render": traced["render"]["trace_s"],
            "trace_s_tiny_cpu": traced["render"]["trace_s_tiny_cpu"],
-           "exporters_s": time.perf_counter() - st["children_t0"],
+           "exporters_s": st["exporters_s"],
            "artifact_bytes": {k: traced[k]["bytes"] for k in traced},
            "weights_bytes": st["weights_bytes"]}
-    t1 = time.perf_counter()
-    st["procs"]["load"] = start_child(d, "load", [EXPORT_CHILD, str(d),
-                                                  json.dumps(KERNEL_SYMBOLS)], st["env"])
     child = wait_child(st, "load")
-    res["child_s"] = time.perf_counter() - t1
+    res["child_s"] = time.perf_counter() - st["load_t0"]
     out_r, out_v, out_t = (torch.load(d / f"{n}_out.pt", weights_only=True,
                                       map_location="cpu")
                            for n in ("reconstruct", "render", "tiny"))
@@ -2835,7 +2902,7 @@ def export_finish(st: dict, smi) -> dict:
     phase("export", st["t0"], f"[{smi}] accelerator engine, 1 x 8 x 256^2 bf16: trace "
           f"and save {res['trace_s_reconstruct']:.1f} s reconstruct, "
           f"{res['trace_s_render']:.1f} s render ({V} views), each in a fresh process "
-          f"beside the demo phase ({res['exporters_s']:.1f} s from their start to "
+          f"beside the demo to train phases ({res['exporters_s']:.1f} s from their start to "
           f"the last one's end); artifacts {res['artifact_bytes']} bytes, weights "
           f"{res['weights_bytes']} bytes (arguments, not stored); loading child "
           f"(torch + the kernels, modules {child['modules']}) {res['child_s']:.1f} s, loads "
@@ -3326,6 +3393,593 @@ def distill_phase(dev, smi, reset_counts, counts, zero):
     return rec
 
 
+
+# ---------------------------------------------------------------------------
+# parallel: the MoE flagship, every parallel route at world 1, a world-2 DDP
+# step on the one card, the brute-force render oracle, the memory reckoning
+# ---------------------------------------------------------------------------
+
+def moe_flagship_config(E: int, **kw):
+    """configs/experiment/re10k_8view.yaml's widths with MoE decoder MLPs."""
+    from vicasplat_tpu_torch.models import (
+        GaussianAdapterConfig,
+        VicaNetConfig,
+        VicaSplatConfig,
+    )
+
+    return VicaSplatConfig(
+        backbone=VicaNetConfig(moe_experts=E, moe_top_k=MOE_TOP_K,
+                               moe_capacity_factor=MOE_CAPACITY),
+        gaussian_adapter=GaussianAdapterConfig(sh_degree=4), **kw)
+
+
+def forward_gaps(a, ref):
+    """plain-k1's distances between two forwards' outputs."""
+    ga, gr = a["gaussians"], ref["gaussians"]
+    return {"means_rel": ((ga.means - gr.means).abs().max()
+                          / gr.means.abs().max()).item(),
+            "opacities_abs": (ga.opacities - gr.opacities).abs().max().item(),
+            "poses_abs": (a["gaussian_camera_extrins"]
+                          - ref["gaussian_camera_extrins"]).abs().max().item()}
+
+
+def within(gaps, tol):
+    return all(gaps[m] <= tol[m] for m in tol)
+
+
+def synthetic_pose_setup(dev):
+    """configs/experiment/synthetic_pose.yaml's TrainConfig and model from
+    the seed, and a batch of DDP_BATCH (4 context frames, 2 targets of
+    64^2) from a seed."""
+    from vicasplat_tpu_torch.main import build_all
+    from vicasplat_tpu_torch.training.presets import flagship_train_batch
+    from vicasplat_tpu_torch.utils.config import load_config
+
+    cfg = load_config(ROOT / "configs" / "main.yaml", "synthetic_pose")
+    train_cfg, model, opt = build_all(cfg, dev)
+    batch = flagship_train_batch(dev, DDP_BATCH, 2, size=64, T=4)
+    return train_cfg, model, opt, batch
+
+
+def step_record(model, logs, step_fn=None):
+    """A step's loss and gradient norm, each parameter group's gradient norm
+    (grad_group) and parameter checksum (float64 sums)."""
+    from vicasplat_tpu_torch.training.optimizer import local
+
+    norms, sums = {}, {}
+    for name, p in model.named_parameters():
+        key = grad_group(name)
+        g = 0.0 if p.grad is None else float((local(p.grad).double() ** 2).sum())
+        norms[key] = norms.get(key, 0.0) + g
+        sums[key] = sums.get(key, 0.0) + float(local(p.detach()).double().sum())
+    return {"loss": float(logs["loss"]), "grad_norm": float(logs["grad_norm"]),
+            "group_norms": {k: math.sqrt(v) for k, v in norms.items()},
+            "param_sums": sums,
+            "nonfinite": None if step_fn is None else int(step_fn.nonfinite)}
+
+
+def step_gaps(got, ref):
+    """Relative gaps of the loss, the gradient norm and each group's
+    gradient norm; the largest parameter-sum gap, absolute."""
+    def rel(a, r):
+        return abs(a - r) / abs(r) if r else abs(a)
+
+    gaps = {"loss": rel(got["loss"], ref["loss"]),
+            "grad_norm": rel(got["grad_norm"], ref["grad_norm"]),
+            "group_norms": max(rel(got["group_norms"][k], v)
+                               for k, v in ref["group_norms"].items())}
+    gaps["param_sums"] = max(abs(got["param_sums"][k] - v)
+                             for k, v in ref["param_sums"].items())
+    return gaps
+
+
+def ddp_child(rank: int, root: str):
+    """One rank of the world-2 DDP step: both ranks on cuda:0 over gloo,
+    each with its half of the synthetic_pose batch. Writes its record to
+    root/rank<r>.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from vicasplat_tpu_torch.kernels import COUNTERS, launch_counts
+    from vicasplat_tpu_torch.training import make_train_step
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(root, "store"), 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        train_cfg, model, opt, batch = synthetic_pose_setup(dev)
+        n = DDP_BATCH // 2
+        mine = {v: {k: x[rank * n:(rank + 1) * n] for k, x in views.items()}
+                for v, views in batch.items()}
+        step = make_train_step(train_cfg, model, opt, ddp_group=dist.group.WORLD)
+        for fn, attr in COUNTERS.values():
+            setattr(fn, attr, 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs = step(mine, DDP_STEP)
+        torch.cuda.synchronize()
+        rec = step_record(model, logs, step)
+        rec.update(ms=(time.perf_counter() - t) * 1e3, launches=launch_counts(),
+                   backend=str(dist.get_backend()))
+    finally:
+        dist.destroy_process_group()
+    pathlib.Path(root, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def start_ddp_children(root: pathlib.Path):
+    """The world-2 DDP step's two processes, their output in root/rank<r>.log;
+    one intra-op thread each, beside the parent's work."""
+    root.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    procs = []
+    for r in range(2):
+        with open(root / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-child", str(r),
+                 str(root)], cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def finish_ddp_children(procs, root: pathlib.Path, timeout: float = 400) -> list:
+    for r, p in enumerate(procs):
+        if p.wait(timeout=timeout) != 0:
+            raise AssertionError(f"DDP rank {r} exited {p.returncode}:\n"
+                                 + (root / f"rank{r}.log").read_text()[-4000:])
+    return [json.loads((root / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def oracle_scene():
+    """tests/test_torch_raster_reference.py's scene: 64 splats in front of
+    an identity camera, 32^2, SH degree 0, drawn by numpy from seed 0."""
+    from vicasplat_tpu_torch.ops.rasterize.projection import cov6_from_scale_rot
+
+    rng = np.random.default_rng(0)
+    n = 64
+    means = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    means[:, 2] += 3.0
+    scales = rng.uniform(0.02, 0.1, (n, 3)).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    t = torch.from_numpy
+    return (t(means), cov6_from_scale_rot(t(scales), t(quats)),
+            t((rng.normal(size=(n, 3, 1)) * 0.3).astype(np.float32)),
+            t(rng.uniform(0.3, 0.9, n).astype(np.float32)), torch.eye(4)[None],
+            torch.tensor([[[1.2, 0.0, 0.5], [0.0, 1.2, 0.5], [0.0, 0.0, 1.0]]]))
+
+
+def oracle_gaps(dev, smi):
+    """The brute-force oracle (ops/rasterize/reference.py) beside the tiled
+    renders, the default and the accelerator configuration, all on the card:
+    on the CPU test's scene held within its tolerances; on the render
+    phase's 1,000-splat scene held within them too, at the caps where
+    nothing is cut, against the oracle with the tiles' 3-sigma support; on
+    the covering scene (524,288 Gaussians, 256^2) the gaps printed."""
+    from vicasplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from vicasplat_tpu_torch.ops.rasterize import reference as oracle
+    from vicasplat_tpu_torch.ops.rasterize.render import coverage_stats, render
+
+    def gaps(got, ref):
+        return {f: (a[0] - r.to(a.device)).abs().max().item()
+                for f, a, r in zip(("color", "depth", "alpha"), got, ref)}
+
+    def accel(**kw):
+        return RasterizeConfig(backend="pallas", binning="origin", **kw)
+
+    t0 = time.perf_counter()
+    rec = {}
+    small = dict(tile_px=8, dup_hw=(4, 4), max_per_tile=64, chunk=32, tile_group=16,
+                 pallas_chunk=32)
+    means, cov6, sh, opac, ext, K = (x.to(dev) for x in oracle_scene())
+    bg = torch.zeros(3, device=dev)
+    ref = oracle.render_view_bruteforce(means, cov6, sh, opac, ext[0], K[0], (32, 32),
+                                        bg, 0)
+    for name, rc in (("default", RasterizeConfig(**small)), ("accel", accel(**small))):
+        g = gaps(render(means, cov6, sh, opac, ext, K, (32, 32), bg, 0, cfg=rc), ref)
+        rec[f"test_scene_{name}"] = g
+        if not all(g[f] <= ORACLE_TOL[f] for f in ORACLE_TOL):
+            raise AssertionError(f"{name} render of the test scene vs the oracle: {g} "
+                                 f"(tol {ORACLE_TOL})")
+    # the render phase's scene at dup (4, 4), where coverage_stats reports no
+    # splat truncated and no tile full, against the oracle with the tiles'
+    # 3-sigma support (the plain oracle's gap printed beside it)
+    means, cov6, sh, opac, ext, K = (x.to(dev) for x in small_scene())
+    for v in range(ext.shape[0]):
+        view = torch.linalg.inv(ext[v])
+        args = (means, cov6, sh, opac, view, K[v], (96, 128), bg, 4)
+        plain = oracle.render_view_bruteforce(*args)
+        ref = oracle.render_view_bruteforce(*args, support_tile_px=16)
+        for name, rc in (("default", RasterizeConfig(dup_hw=(4, 4))),
+                         ("accel", accel(dup_hw=(4, 4)))):
+            cov = coverage_stats(*args[:7], 4, cfg=rc)
+            if float(cov["truncated_frac"]) or float(cov["tile_overflow_frac"]):
+                raise AssertionError(f"1,000-splat scene, view {v}: caps cut {cov}")
+            got = render(means, cov6, sh, opac, ext[v:v + 1], K[v:v + 1], (96, 128), bg,
+                         4, cfg=rc)
+            g = gaps(got, ref)
+            rec.setdefault(f"render_scene_{name}", []).append(
+                {"support": g, "plain": gaps(got, plain)})
+            if not all(g[f] <= ORACLE_TOL[f] for f in ORACLE_TOL):
+                raise AssertionError(f"{name} render of the 1,000-splat scene, view {v}, "
+                                     f"vs the oracle: {g} (tol {ORACLE_TOL})")
+    phase("parallel", t0, "oracle: the CPU test's scene (64 splats, 32^2) default "
+          f"{rec['test_scene_default']}, accel {rec['test_scene_accel']} (tol "
+          f"{ORACLE_TOL}); the render phase's 1,000-splat scene (2 views of 96 x 128, "
+          "dup (4, 4), nothing truncated), gaps to the oracle with the tiles' support | "
+          "to the plain oracle: "
+          + "; ".join(f"{n} view {v}: " + ", ".join(
+              f"{f} {r['support'][f]:.2e} | {r['plain'][f]:.2e}" for f in r["support"])
+              for n in ("default", "accel")
+              for v, r in enumerate(rec[f"render_scene_{n}"])))
+
+    t0 = time.perf_counter()
+    args = covering_scene(dev)
+    means, cov6, sh, opac, ext, K, shape, bg, deg = args
+    view = torch.linalg.inv(ext[0])
+    torch.cuda.synchronize()
+    o0 = time.perf_counter()
+    ref = oracle.render_view_bruteforce_chunked(means, cov6, sh, opac, view, K[0],
+                                                shape, bg, deg, px_chunk=ORACLE_CHUNK)
+    torch.cuda.synchronize()
+    scene = {"oracle_s": time.perf_counter() - o0}
+    for name, rc in (("default", RasterizeConfig()), ("accel", accel())):
+        got = render(*args, cfg=rc)
+        err = {f: (a[0] - r).abs() for f, a, r in zip(("color", "depth", "alpha"), got, ref)}
+        scene[name] = {f: {"max": e.max().item(), "mean": e.mean().item()}
+                       for f, e in err.items()}
+        cov = coverage_stats(means, cov6, sh, opac, view, K[0], shape, deg, cfg=rc)
+        scene[name]["coverage"] = {k: float(x) for k, x in cov.items()}
+    rec["covering"] = scene
+    phase("parallel", t0, f"[{smi}] oracle on the covering scene (524288 Gaussians, "
+          f"256^2, chunks of {ORACLE_CHUNK} pixels): {scene['oracle_s']:.2f} s; gaps "
+          "to it "
+          + "; ".join(f"{n}: color max {scene[n]['color']['max']:.4f} mean "
+                      f"{scene[n]['color']['mean']:.2e}, alpha max "
+                      f"{scene[n]['alpha']['max']:.4f} mean {scene[n]['alpha']['mean']:.2e}"
+                      f" (truncated {scene[n]['coverage']['truncated_frac']:.4f}, tiles "
+                      f"full {scene[n]['coverage']['tile_overflow_frac']:.4f})"
+                      for n in ("default", "accel")))
+    del ref, args
+    return rec
+
+
+def moe_train(dev, E, reset_counts, counts, zero):
+    """The MoE flagship's training step at batch 2 with MOE_TARGETS target
+    views: 1 warm-up and 2 timed steps, exact launch counts, finite logs;
+    raises torch.cuda.OutOfMemoryError when it does not fit."""
+    from vicasplat_tpu_torch.models import init_vicasplat
+    from vicasplat_tpu_torch.training import AdamW, make_train_step
+    from vicasplat_tpu_torch.training.presets import (
+        flagship_train_batch,
+        flagship_train_config,
+    )
+
+    base = flagship_train_config()
+    cfg = dataclasses.replace(base, model=moe_flagship_config(
+        E, **{k: getattr(base.model, k) for k in ("pts3d_bounds",)}))
+    dec_depth = cfg.model.backbone.dec_depth
+    model = init_vicasplat(cfg.model, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(cfg, model, AdamW(model, cfg.optimizer))
+    batch = flagship_train_batch(dev, 2, MOE_TARGETS)
+    want = dict(zero, flash_attn=2 * dec_depth, flash_attn_bwd=dec_depth)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(3):
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs = step(batch, i + 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = counts()
+        logs = {k: float(v) for k, v in logs.items()}
+        if launches != want:
+            raise AssertionError(f"MoE train step {i} launches {launches}, not {want}")
+        if int(step.nonfinite) or not all(math.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"MoE train step {i}: logs {logs}, "
+                                 f"{int(step.nonfinite)} non-finite gradient entries")
+        steps.append(dict(ms=ms, logs=logs, launches=launches))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, step
+    return dict(E=E, params=n_params, steps=steps, step_ms=[s["ms"] for s in steps[1:]],
+                peak_gb=peak)
+
+
+def parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero):
+    """See the module docstring's `parallel`. The world-2 DDP processes are
+    stopped whatever happens."""
+    procs = []
+    try:
+        return _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, procs):
+    import copy
+    import gc
+    import shutil
+
+    import torch.distributed as dist
+
+    from vicasplat_tpu_torch import parallel as par
+    from vicasplat_tpu_torch.decoder.splatting import DecoderSplattingConfig, decoder_forward
+    from vicasplat_tpu_torch.models import init_vicasplat, vicasplat_forward
+    from vicasplat_tpu_torch.models import moe as moe_lib
+    from vicasplat_tpu_torch.models import vicanet as vicanet_lib
+    from vicasplat_tpu_torch.models.layers import fill_normal_
+    from vicasplat_tpu_torch.models.vicasplat import VicaSplat
+    from vicasplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from vicasplat_tpu_torch.parallel import memory_proof
+    from vicasplat_tpu_torch.parallel.mesh import shard_params_fsdp
+    from vicasplat_tpu_torch.training import AdamW, make_train_step
+
+    rec = {}
+    ddp_root = ROOT / "build" / "chip_smoke_ddp"
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = par.make_mesh()
+        # ---- the MoE flagship's forward in both configurations ----
+        cfg = moe_flagship_config(MOE_EXPERTS)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = init_vicasplat(cfg, gen, dev)
+        fill_normal_(model.camera_extrinsic_head.proj.weight, 0.02, gen)
+        n_params = sum(p.numel() for p in model.parameters())
+        model = model.to(torch.bfloat16).eval()
+        with torch.device(dev):
+            model_acc = VicaSplat(dataclasses.replace(cfg, head_tail_backend="pallas"))
+        model_acc = model_acc.to(torch.bfloat16).eval()
+        model_acc.load_state_dict(model.state_dict())
+        context, tgt_ext, tgt_K = flagship_inputs(dev)
+        near = torch.ones(tgt_ext.shape[:2], device=dev)
+        far = torch.full(tgt_ext.shape[:2], 100.0, device=dev)
+        dec_cfgs = {"default": DecoderSplattingConfig(),
+                    "accel": DecoderSplattingConfig(rasterize=RasterizeConfig(
+                        backend="pallas", binning="origin"))}
+        models = {"default": model, "accel": model_acc}
+        dec_depth = cfg.backbone.dec_depth
+        wants = {"default": dict(zero, flash_attn=dec_depth),
+                 "accel": dict(zero, flash_attn=dec_depth, dpt_tail=1,
+                               composite=N_VIEWS, bitonic_topk=N_VIEWS)}
+        moe = {"params": n_params}
+
+        def fwd(which, **kw):
+            with torch.inference_mode():
+                return vicasplat_forward(models[which], context, dtype=torch.bfloat16,
+                                         **kw)
+
+        def rnd(out, which):
+            with torch.inference_mode():
+                return decoder_forward(dec_cfgs[which], out["gaussians"], tgt_ext,
+                                       tgt_K, near, far, (256, 256))
+
+        outs = {}
+        for which in ("default", "accel"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            out = fwd(which)
+            r = rnd(out, which)
+            torch.cuda.synchronize()
+            launches = counts()
+            if launches != wants[which]:
+                raise AssertionError(f"MoE {which} launches {launches}, not {wants[which]}")
+            check_outputs(out, r)
+            fwd_ms = statistics.median(cuda_ms(lambda: fwd(which), iters=1, warmup=1)
+                                       for _ in range(3))
+            rnd_ms = statistics.median(cuda_ms(lambda: rnd(out, which), iters=1, warmup=0)
+                                       for _ in range(3))
+            moe[which] = dict(launches=launches, forward_ms=fwd_ms, render_ms=rnd_ms,
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              alpha_mean=r.alpha.float().mean().item())
+            outs[which] = (out, r)
+            phase("parallel", t0, f"[{smi}] MoE flagship (E {MOE_EXPERTS}, top-"
+                  f"{MOE_TOP_K}, capacity factor {MOE_CAPACITY}, {n_params} parameters) "
+                  f"{which}: forward of 1 x 8 x 256^2 bf16 + {N_VIEWS}-view render, "
+                  f"launches {launches}; forward_ms {fwd_ms:.2f}, render_ms "
+                  f"{rnd_ms:.2f}, peak allocated {moe[which]['peak_gb']:.2f} GB")
+        reset_counts()
+        with mock.patch.object(vicanet_lib, "moe_mlp", moe_lib.moe_mlp_einsum):
+            ein = fwd("default")
+        if counts() != wants["default"]:
+            raise AssertionError(f"einsum forward launches {counts()}")
+        gaps = forward_gaps(ein, outs["default"][0])
+        moe["einsum_vs_index"] = gaps
+        phase("parallel", t0, "MoE dispatch, einsum form against the index form: "
+              + ", ".join(f"{m} {gaps[m]:.3e} (tol {plain_tol[m]:.3e})" for m in plain_tol))
+        if not within(gaps, plain_tol):
+            raise AssertionError(f"einsum and index dispatch disagree: {gaps}")
+        del ein
+
+        # the world-2 DDP step's two processes start here: their start-up
+        # (imports, the card, the model) is host work beside the routes,
+        # the MoE train step and the oracle
+        shutil.rmtree(ddp_root, ignore_errors=True)
+        procs.extend(start_ddp_children(ddp_root))
+
+        # ---- every route at world 1 against the call it wraps ----
+        routes = {}
+        t1 = time.perf_counter()
+        out_acc, r_acc = outs["accel"]
+        reset_counts()
+        with torch.inference_mode():
+            vs = par.decoder_forward_view_sharded(dec_cfgs["accel"], out_acc["gaussians"],
+                                                  tgt_ext, tgt_K, near, far, (256, 256),
+                                                  mesh)
+        torch.cuda.synchronize()
+        want = dict(zero, composite=N_VIEWS, bitonic_topk=N_VIEWS)
+        routes["view_sharded"] = {"max_abs": max((a - b).abs().max().item()
+                                                 for a, b in zip(vs, r_acc)),
+                                  "launches": counts()}
+        if routes["view_sharded"]["launches"] != want:
+            raise AssertionError(f"view-sharded render launches "
+                                 f"{routes['view_sharded']['launches']}, not {want}")
+        if routes["view_sharded"]["max_abs"] > RENDER_TOL:
+            raise AssertionError(f"view-sharded render: {routes['view_sharded']}")
+        ep_model = copy.deepcopy(model)
+        par.shard_params_ep(par.make_mesh_ep(1, 1), ep_model)
+        models["ep"] = ep_model
+        reset_counts()
+        ep_out = fwd("ep", parallel={"ep_group": ep_model.backbone.dec_blocks[0].mlp.ep_group})
+        torch.cuda.synchronize()
+        ep_launches = counts()
+        if ep_launches != wants["default"]:
+            raise AssertionError(f"EP forward launches {ep_launches}, not "
+                                 f"{wants['default']}")
+        routes["ep"] = dict(forward_gaps(ep_out, outs["default"][0]), launches=ep_launches)
+        del models["ep"], ep_model, ep_out
+        del model, model_acc, models, outs, out_acc, r_acc, vs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # dense flagship for SP, PP and TP (PP refuses MoE, as in JAX)
+        dense_cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+            cfg.backbone, moe_experts=0))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        dense = init_vicasplat(dense_cfg, gen, dev)
+        fill_normal_(dense.camera_extrinsic_head.proj.weight, 0.02, gen)
+        dense = dense.to(torch.bfloat16).eval()
+        models = {"dense": dense}
+        ref = fwd("dense")
+
+        def routed(name, **parallel):
+            reset_counts()
+            out = fwd("dense", parallel=parallel)
+            torch.cuda.synchronize()
+            launches = counts()
+            if launches != wants["default"]:
+                raise AssertionError(f"{name} forward launches {launches}, not "
+                                     f"{wants['default']}")
+            routes[name] = dict(forward_gaps(out, ref), launches=launches)
+
+        routed("sp", sp_mesh=par.make_mesh_sp(1, 1))
+        routed("pp", pipeline_group=par.make_mesh_pipe(1))
+        par.shard_params_tp(par.make_mesh_2d(1, 1), dense)
+        routed("tp")
+        del models, dense, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name in ("ep", "sp", "pp", "tp"):
+            if not within(routes[name], plain_tol):
+                raise AssertionError(f"{name} forward at world 1: {routes[name]} "
+                                     f"(tol {plain_tol})")
+
+        # DDP and FSDP2 steps of synthetic_pose against the plain step, each
+        # from the same seeded weights
+        train_cfg, m, opt, batch = synthetic_pose_setup(dev)
+        step = make_train_step(train_cfg, m, opt)
+        plain = step_record(m, step(batch, DDP_STEP), step)
+        for name in ("ddp", "fsdp"):
+            del m, opt, step
+            gc.collect()
+            train_cfg, m, opt, batch = synthetic_pose_setup(dev)
+            if name == "fsdp":
+                shard_params_fsdp(mesh, m)
+                step = make_train_step(train_cfg, m, AdamW(m, train_cfg.optimizer))
+            else:
+                step = make_train_step(train_cfg, m, opt, ddp_group=mesh.get_group())
+            routes[name] = step_gaps(step_record(m, step(batch, DDP_STEP), step), plain)
+        del m, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name in ("ddp", "fsdp"):
+            if not (routes[name]["loss"] <= STEP_TOL
+                    and routes[name]["grad_norm"] <= FLASH_BWD_FLOOR
+                    and routes[name]["group_norms"] <= FLASH_BWD_FLOOR):
+                raise AssertionError(f"{name} step at world 1: {routes[name]}")
+        phase("parallel", t1, "every route at world 1 (NCCL), against the call it wraps: "
+              + "; ".join(f"{k} {v}" for k, v in routes.items())
+              + f" (forwards: plain-k1 tol {plain_tol}; steps: loss {STEP_TOL}, "
+              f"gradient norms {FLASH_BWD_FLOOR})")
+        rec["routes"] = routes
+    finally:
+        dist.destroy_process_group()
+
+    # ---- the MoE flagship's train step ----
+    t1 = time.perf_counter()
+    cuts = []
+    for E in (MOE_EXPERTS, 4):
+        try:
+            tr = moe_train(dev, E, reset_counts, counts, zero)
+            break
+        except torch.cuda.OutOfMemoryError:
+            cuts.append(f"E {E}: out of memory, peak "
+                        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+            phase("parallel", t1, "cut: " + cuts[-1])
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"the MoE train step fits at no E: {cuts}")
+    tr["cuts"] = cuts
+    moe["train"] = tr
+    phase("parallel", t1, f"[{smi}] MoE flagship train step (E {tr['E']}, "
+          f"{tr['params']} parameters), batch 2 x 8 context frames, {MOE_TARGETS} targets "
+          f"of 256^2, remat dots: step ms {[round(s['ms'], 1) for s in tr['steps']]} "
+          f"(first a warm-up), launches {tr['steps'][-1]['launches']}, loss "
+          f"{tr['steps'][-1]['logs']['loss']:.5f}, peak allocated {tr['peak_gb']:.2f} GB; "
+          f"cuts {cuts or 'none'}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- a world-2 DDP step on the one card, beside the oracle ----
+    t1 = time.perf_counter()
+    rec["oracle"] = oracle_gaps(dev, smi)
+    refs = {}
+    for A in (2, 1):  # each rank's half as one micro-batch; the whole batch
+        train_cfg, m, opt, batch = synthetic_pose_setup(dev)
+        step = make_train_step(dataclasses.replace(train_cfg, accumulate_steps=A),
+                               m, opt)
+        refs[A] = step_record(m, step(batch, DDP_STEP), step)
+        del m, opt, step
+        gc.collect()
+    ranks = finish_ddp_children(procs, ddp_root)
+    want = dict(zero, flash_attn=train_cfg.model.backbone.dec_depth,
+                flash_attn_bwd=train_cfg.model.backbone.dec_depth)
+    ddp2 = {"ranks": [{k: r[k] for k in ("loss", "grad_norm", "ms", "launches",
+                                          "backend", "nonfinite")} for r in ranks],
+            "vs_world1_micro": step_gaps(ranks[0], refs[2]),
+            "vs_world1_whole": step_gaps(ranks[0], refs[1]),
+            "replicas": max(abs(ranks[0]["param_sums"][k] - v)
+                            for k, v in ranks[1]["param_sums"].items())}
+    g = ddp2["vs_world1_micro"]
+    phase("parallel", t1, f"[{smi}] world-2 DDP step on cuda:0 over gloo, synthetic_pose "
+          f"batch {DDP_BATCH} ({DDP_BATCH // 2} a rank): rank ms "
+          f"{[round(r['ms'], 1) for r in ranks]}, launches {ranks[0]['launches']}; against "
+          f"world 1 in two micro-batches {g}, against world 1 whole "
+          f"{ddp2['vs_world1_whole']}; replicas' parameter sums apart {ddp2['replicas']:.3e}")
+    if any(r["launches"] != want for r in ranks):
+        raise AssertionError(f"DDP ranks launched {[r['launches'] for r in ranks]}")
+    if not (g["loss"] <= STEP_TOL and g["grad_norm"] <= FLASH_BWD_FLOOR
+            and g["group_norms"] <= FLASH_BWD_FLOOR and ddp2["replicas"] == 0.0):
+        raise AssertionError(f"world-2 DDP step against world 1: {ddp2}")
+    rec["ddp2"] = ddp2
+    shutil.rmtree(ddp_root, ignore_errors=True)
+
+    # ---- the memory reckoning beside the measured peak ----
+    t1 = time.perf_counter()
+    measured = memory_proof.measure_step_peak(dev, batch=1)
+    report = memory_proof.flagship_memory_proof(measured=measured)
+    rows = report["configs"]
+    phase("parallel", t1, f"[{smi}] memory: state a rank reckoned (parameters, gradients, "
+          "AdamW) " + ", ".join(f"{k} {v['state_gib']:.2f} GiB" for k, v in rows.items())
+          + f"; measured world-1 flagship step (batch 1, 8 + 4 views) peak "
+          f"{measured['peak_gib']:.2f} GiB, step ms "
+          f"{[round(x, 1) for x in measured['step_ms']]}; card "
+          f"{report['device_bytes'] / 1024**3:.2f} GiB")
+    rec["memory"] = report
+    rec["moe"] = moe
+    phase("parallel", t0, "done")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3499,25 +4153,25 @@ def main():
 
     # ---- the engine's programs exported, their child process beside the
     # demo CLI ----
+    # the exporting processes run beside demo, K1's backward, its float32
+    # route, the tiny float32 configuration through that route and the
+    # flagship training step (their tracing is host work)
     pending = export_start(dev, model_acc, configs["accel"][1])
     try:
         demo = demo_phase(dev, smi, reset_counts, counts, zero)
+        k1_bwd = flash_bwd_phase(dev)
+        tiny, (tq, tk, tv) = tiny_phase(dev, reset_counts, counts)
+        b, sq, h, d = tq.shape
+        k1_f32 = flash_f32_phase(dev, {
+            "tiny decoder": (b, sq, tk.shape[1], h, d),  # the tiny phase's shape
+            "d12 ragged": (2, 200, 137, 12, 12),
+            "d16 ragged": (2, 77, 130, 4, 16),
+            "d64 decoder": (1, 2056, 2064, 12, 64)})
+        del tq, tk, tv
+        train = train_phase(dev, dec_depth, reset_counts, counts)
         exported = export_finish(pending, smi)
     finally:
         export_stop(pending)
-
-    # ---- K1's backward, its float32 route, the tiny float32 configuration
-    # through that route, then the flagship training step ----
-    k1_bwd = flash_bwd_phase(dev)
-    tiny, (tq, tk, tv) = tiny_phase(dev, reset_counts, counts)
-    b, sq, h, d = tq.shape
-    k1_f32 = flash_f32_phase(dev, {
-        "tiny decoder": (b, sq, tk.shape[1], h, d),  # the tiny phase's shape
-        "d12 ragged": (2, 200, 137, 12, 12),
-        "d16 ragged": (2, 77, 130, 4, 16),
-        "d64 decoder": (1, 2056, 2064, 12, 64)})
-    del tq, tk, tv
-    train = train_phase(dev, dec_depth, reset_counts, counts)
 
     # ---- both configurations in turns ----
     t0 = time.perf_counter()
@@ -3650,6 +4304,7 @@ def main():
     bad = [m for m in floor if not d_k1[m] <= tol[m]]
     if bad:
         raise AssertionError(f"kernel and plain forward disagree: {bad}")
+    plain_tol = dict(tol)
 
     # ---- the serving engine on the same models ----
     del ref, alt
@@ -3665,6 +4320,7 @@ def main():
     train_mode = train_mode_phase(dev, smi, reset_counts, counts, zero)
     re10k = re10k_phase(dev, smi, reset_counts, counts, zero)
     distill = distill_phase(dev, smi, reset_counts, counts, zero)
+    parallel = parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero)
 
     def entry(name, replaces, r, launches=None, source=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3750,6 +4406,7 @@ def main():
         "train_mode": train_mode,
         "re10k": re10k,
         "distill": distill,
+        "parallel": parallel,
         "wall_s": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3758,4 +4415,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 4 and sys.argv[1] == "--ddp-child":
+        ddp_child(int(sys.argv[2]), sys.argv[3])  # a rank of parallel's world 2
+    else:
+        main()

@@ -22,6 +22,7 @@ import torch
 from jax import export as jexport
 
 from tests.test_torch_model import TOL
+from tests.test_torch_render import jax_exact_depth_order
 from vicasplat_tpu import export as jex
 from vicasplat_tpu import serving as jserving
 from vicasplat_tpu.decoder.splatting import DecoderSplattingConfig as JDecCfg
@@ -204,7 +205,9 @@ def setup(tmp_path_factory):
         jref[name] = exp.call(je.params, jnp.asarray(images), jnp.asarray(K))
     je = jserving.InferenceEngine(jcfg, params=params, dtype=jnp.float32,
                                   decoder=JDecCfg(background_color=BG))
-    exp = jexport.deserialize(jex.export_render(je, (1, T, SIZE, SIZE), V, (SIZE, SIZE)))
+    with jax_exact_depth_order():  # JAX's dup-sort keys tie close depths
+        exp = jexport.deserialize(jex.export_render(je, (1, T, SIZE, SIZE), V,
+                                                    (SIZE, SIZE)))
     jref["render"] = exp.call({k: jnp.asarray(v.numpy()) for k, v in g_dict.items()},
                               *(jnp.asarray(x) for x in rargs))
     child = child_results(proc, tmp)
@@ -252,7 +255,8 @@ def test_loaded_reconstruct_equals_the_eager_engine(setup, name):
 
 
 def test_loaded_renders_match(setup):
-    """The default render against JAX's artifact; the accelerator render
+    """The default render against JAX's artifact (its tiles' lists in exact
+    depth order, `jax_exact_depth_order`); the accelerator render
     (K2 and K4 by their operators, plain versions on the CPU) against the
     eager engine bit for bit."""
     out, ref = setup["child"]["outs"]["render"], setup["jref"]["render"]

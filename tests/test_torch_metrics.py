@@ -66,6 +66,27 @@ def test_ssim_and_gradients_match_jax(smooth):
         assert np.abs(t.numpy() - j).max() / np.abs(j).max() < SSIM_GRAD_TOL
 
 
+def test_ssim_grad_finite_on_all_zero_images():
+    """tests/test_losses.py:138 on the port: an all-zero image against a
+    textured one, zero against zero, and a half-constant image; every
+    gradient finite, and each pair's value and gradients as JAX's."""
+    rng = np.random.default_rng(3)
+    gt = rng.uniform(0, 1, (32, 32, 3)).astype(np.float32)
+    zero = np.zeros_like(gt)
+    mixed = gt.copy()
+    mixed[16:] = 0.25
+    for pred, target in ((zero, gt), (zero, zero), (mixed, gt)):
+        want, jg = jax.value_and_grad(jssim.ssim)(jnp.asarray(pred), jnp.asarray(target))
+        tp = torch.from_numpy(pred.copy()).requires_grad_()
+        got = tssim.ssim(tp, torch.from_numpy(target))
+        got.backward()
+        assert np.isfinite(tp.grad.numpy()).all()
+        assert abs(got.item() - float(want)) < SSIM_TOL
+        jg = np.asarray(jg)
+        assert np.abs(tp.grad.numpy() - jg).max() <= SSIM_GRAD_TOL * max(
+            np.abs(jg).max(), 1.0)
+
+
 def test_ssim_components_and_gradients_match_jax():
     a, b = _images(1, shape=(4, 32, 32, 3))
     want = jssim.ssim_components(jnp.asarray(a), jnp.asarray(b))

@@ -2,9 +2,15 @@
 matmul and kernel compositing) with the JAX package's, in float32 on the
 CPU, where the port's kernels take their plain versions and the JAX
 package's Pallas kernels run interpreted. Renders are compared as images,
-never as ids: the order of splats that share a depth bucket is arbitrary in
-both packages."""
+never as ids. The port composites each tile's splats in exact depth order;
+the JAX package's u32 sort words keep only some bits of the depth and order
+the splats they tie arbitrarily, so where such a tie reaches a pixel the
+JAX reference is taken with each tile's kept list put in exact depth order
+(`jax_exact_depth_order`)."""
+import contextlib
 import dataclasses
+import importlib
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -16,11 +22,35 @@ from vicasplat_tpu.geometry.se3 import rigid_inverse as j_rigid_inverse
 from vicasplat_tpu.ops.rasterize import projection as jproj
 from vicasplat_tpu.ops.rasterize.render import RasterizeConfig as JRasterCfg
 from vicasplat_tpu.ops.rasterize.render import render as jrender
+from vicasplat_tpu.ops.rasterize.tiles import TileBins as JTileBins
 from vicasplat_tpu_torch.ops.rasterize import projection as tproj
 from vicasplat_tpu_torch.ops.rasterize.render import RasterizeConfig as TRasterCfg
 from vicasplat_tpu_torch.ops.rasterize.render import render as trender
 
 torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def jax_exact_depth_order():
+    """The JAX package's renders with its own binning (windows, caps and the
+    splats each tile keeps), each tile's kept list then sorted by its exact
+    depth before compositing. JAX's dup-sort keys keep 32 - tile_bits bits
+    of the depth and its origin words 32 - log2(merged width), and splats
+    whose bits tie composite in whatever order the sort leaves them; the
+    port's keys keep the exact order (ops/rasterize/tiles.py)."""
+    mod = importlib.import_module("vicasplat_tpu.ops.rasterize.render")
+
+    def exact(bin_fn):
+        def wrapped(*args, **kw):
+            p = bin_fn(*args, **kw).payload
+            key = jnp.where(p[..., 5] > 0, p[..., 9], jnp.inf)  # empty slots last
+            order = jnp.argsort(key, axis=1, stable=True)
+            return JTileBins(jnp.take_along_axis(p, order[..., None], axis=1))
+        return wrapped
+
+    with mock.patch.object(mod, "bin_splats", exact(mod.bin_splats)), \
+            mock.patch.object(mod, "bin_splats_origin", exact(mod.bin_splats_origin)):
+        yield
 
 # projection: elementwise float32 formulas in the same order, a few ulp
 PROJ_TOL = 1e-5
@@ -139,8 +169,10 @@ def test_accelerator_render_matches_jax(backend, binning, image_shape):
     bg = np.array([0.1, 0.2, 0.3], np.float32)
     jargs, targs, cov6, jcfg, tcfg = _both(
         dict(SMALL, backend=backend, binning=binning), image_shape, bg)
-    # the Pallas path takes the background as a static tuple
-    ref = jrender(*jargs, image_shape, tuple(bg.tolist()), 2, cfg=jcfg, cov6=cov6)
+    # the Pallas path takes the background as a static tuple; the ragged
+    # image's origin words tie splats that the port orders exactly
+    with jax_exact_depth_order():
+        ref = jrender(*jargs, image_shape, tuple(bg.tolist()), 2, cfg=jcfg, cov6=cov6)
     out = trender(*targs, image_shape, torch.from_numpy(bg), 2, cfg=tcfg)
     assert float(out[2].max()) > 0.99  # saturated pixels: the exit matters
     for name, a, b in zip(("color", "depth", "alpha"), out, ref):

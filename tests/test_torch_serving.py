@@ -190,10 +190,28 @@ def test_bad_requests(servers):
     assert ei.value.code == 404
 
 
-def test_view_mesh_raises():
+def test_view_mesh_raises(engines, tmp_path):
+    """A view_mesh engine (a world-1 gloo group) renders what the plain
+    engine renders, bit for bit; two weight sources still raise."""
+    import torch.distributed as dist
+
+    from vicasplat_tpu_torch.parallel import make_mesh
+
     _, tcfg = tiny_cfgs()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tserving.InferenceEngine(tcfg, view_mesh=object(), device="cpu")
+    _, te = engines
+    images, K = inputs()
+    scene = te.reconstruct(images, K)
+    ext, tK = target_views()
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        ve = tserving.InferenceEngine(tcfg, model=te.model, dtype=torch.float32,
+                                      view_mesh=make_mesh(), device="cpu")
+        got, want = ve.render(scene, ext, tK, (32, 32)), te.render(scene, ext, tK, (32, 32))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     with pytest.raises(ValueError, match="at most one"):
         tserving.InferenceEngine(tcfg, params={}, ckpt="x.npz", device="cpu")
 

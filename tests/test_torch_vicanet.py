@@ -85,8 +85,3 @@ def test_camera_mask_and_neighbours_match_jax():
         kt, vt = tvn._neighbor_kv(torch.from_numpy(k), torch.from_numpy(v), T)
         np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
         np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
-
-
-def test_moe_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tvn.VicaNet(tvn.VicaNetConfig(moe_experts=2, **TINY))

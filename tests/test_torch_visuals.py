@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_render import jax_exact_depth_order
 from tests.test_torch_train import TOY
 from vicasplat_tpu.decoder.splatting import DecoderSplattingConfig as JDecCfg
 from vicasplat_tpu.decoder.splatting import decoder_forward as j_decoder_forward
@@ -216,7 +217,10 @@ def test_video_renders_match_jax():
 def test_render_projections_match_jax():
     jg, tg, _ = scene_pair(seed=5)
     tp = tval3d.render_projections(tg, resolution=24)
-    jp = jval3d.render_projections(jg, resolution=24)
+    # far back and narrow, the orthographic cameras bring the depths within
+    # JAX's u32 key resolution, which orders the tied splats arbitrarily
+    with jax_exact_depth_order():
+        jp = jval3d.render_projections(jg, resolution=24)
     assert tp.shape == (3, 24, 24, 3) == jp.shape
     assert tp.max() > 0.05
     close(tp, jp, IMG_TOL, "projections")

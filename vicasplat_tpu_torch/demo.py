@@ -9,9 +9,11 @@ Frames are PNGs or JPEGs (`utils/image_io.read_rgb8`), resized on the short side
 PIL's LANCZOS does and centre-cropped. Clips of at most `--window` frames
 go through one bf16 forward; longer ones stream through the serving engine
 by sliding windows (`streaming.reconstruct_video`). The render is the
-default `DecoderSplattingConfig()` on one card (the JAX demo's view-sharded
-render over several devices waits for ROADMAP §1 item 6). Runs on the card
-unless `main(argv, device="cpu")`.
+default `DecoderSplattingConfig()`. Under `torchrun --nproc_per_node=N`
+(WORLD_SIZE > 1) the trajectory's views split over the N cards
+(`parallel.decoder_forward_view_sharded`), as the JAX demo splits them over
+its devices; every rank reconstructs the same scene and rank 0 writes the
+outputs. Runs on the card unless `main(argv, device="cpu")`.
 """
 from __future__ import annotations
 
@@ -56,14 +58,17 @@ def intrinsics_from_fov(fov_degrees: float) -> np.ndarray:
 
 def run_demo(cfg, model, images01: np.ndarray, K: np.ndarray, out_dir, *,
              window: int = 8, overlap: int = 2, steps_per_segment: int = 8,
-             dtype=torch.bfloat16, tag: str = "", device="cuda") -> dict:
+             dtype=torch.bfloat16, tag: str = "", device="cuda",
+             view_mesh=None, write: bool = True) -> dict:
     """The demo's pipeline on (T, S, S, 3) frames in [0, 1] and one
     normalized K (3, 3): reconstruct (one forward, or streamed windows when
     T > window), write gaussians.ply, transforms.json, xyz_and_camera.glb,
     report the rasterizer caps' coverage, render the interpolated
     trajectory and write it as render.mp4 (or PNG frames without OpenCV).
     Returns what it computed: poses, Gaussians, trajectory, frames, the
-    kept splat count, coverage, windows and seconds."""
+    kept splat count, coverage, windows and seconds. With `view_mesh` (a
+    1-D DeviceMesh or process group) the render splits its views over the
+    ranks; `write=False` computes everything and writes no file."""
     from .decoder.splatting import DecoderSplattingConfig, coverage_report, decoder_forward
     from .models import Gaussians, vicasplat_forward
     from .utils.image_io import save_video
@@ -107,10 +112,13 @@ def run_demo(cfg, model, images01: np.ndarray, K: np.ndarray, out_dir, *,
     def host(x, *shape):
         return x.float().cpu().numpy().reshape(*shape)
 
-    n_kept = export_ply(host(g.means, -1, 3), host(g.scales, -1, 3),
-                        host(g.rotations, -1, 4),
-                        host(g.harmonics, -1, *g.harmonics.shape[-2:]),
-                        host(g.opacities, -1), out_dir / "gaussians.ply")
+    if write:
+        n_kept = export_ply(host(g.means, -1, 3), host(g.scales, -1, 3),
+                            host(g.rotations, -1, 4),
+                            host(g.harmonics, -1, *g.harmonics.shape[-2:]),
+                            host(g.opacities, -1), out_dir / "gaussians.ply")
+    else:  # the count export_ply keeps (opacity >= its threshold)
+        n_kept = int((g.opacities >= 0.005).sum())
     transforms = {
         "camera_model": "PINHOLE",
         "fl_x": float(K[0, 0] * size), "fl_y": float(K[1, 1] * size),
@@ -118,11 +126,12 @@ def run_demo(cfg, model, images01: np.ndarray, K: np.ndarray, out_dir, *,
         "frames": [{"file_path": f"{i:03d}", "transform_matrix": poses[i].tolist()}
                    for i in range(T)],
     }
-    with open(out_dir / "transforms.json", "w") as f:
-        json.dump(transforms, f, indent=2)
-    write_glb(out_dir / "xyz_and_camera.glb", host(centers, -1, 3),
-              images01.reshape(-1, 3), camera_poses=poses, focal=float(K[0, 0]),
-              cam_size=0.05)
+    if write:
+        with open(out_dir / "transforms.json", "w") as f:
+            json.dump(transforms, f, indent=2)
+        write_glb(out_dir / "xyz_and_camera.glb", host(centers, -1, 3),
+                  images01.reshape(-1, 3), camera_poses=poses,
+                  focal=float(K[0, 0]), cam_size=0.05)
     secs["export"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -132,14 +141,20 @@ def run_demo(cfg, model, images01: np.ndarray, K: np.ndarray, out_dir, *,
     dec_cfg = DecoderSplattingConfig()
     # warn where the rasterizer's static caps truncate this scene
     coverage = coverage_report(dec_cfg, g, traj[None], Kv, (size, size), tag=tag)
+    render_args = (g, traj[None], Kv, torch.full((1, V), 0.05, device=device),
+                   torch.full((1, V), 100.0, device=device), (size, size))
     with torch.no_grad():
-        rendered = decoder_forward(dec_cfg, g, traj[None], Kv,
-                                   torch.full((1, V), 0.05, device=device),
-                                   torch.full((1, V), 100.0, device=device),
-                                   (size, size))
+        if view_mesh is not None:
+            from .parallel import decoder_forward_view_sharded
+
+            rendered = decoder_forward_view_sharded(dec_cfg, *render_args,
+                                                    mesh=view_mesh)
+        else:
+            rendered = decoder_forward(dec_cfg, *render_args)
         frames = rendered.color[0].float().cpu().numpy()
     secs["render"] = time.perf_counter() - t0
-    save_video(frames, out_dir / "render.mp4")
+    if write:
+        save_video(frames, out_dir / "render.mp4")
     return {"poses": poses, "gaussians": g, "trajectory": traj, "frames": frames,
             "n_kept": n_kept, "coverage": coverage, "windows": windows,
             "seconds": secs}
@@ -168,6 +183,16 @@ def main(argv=None, device="cuda"):
         init_vicasplat,
     )
 
+    import os
+
+    view_mesh, lead = None, True
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from .parallel.mesh import init_distributed, make_mesh
+
+        rank, _ = init_distributed(device)
+        if torch.device(device).type == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        view_mesh, lead = make_mesh(), rank == 0
     images = load_images(pathlib.Path(args.image_dir), args.size)
     print(f"loaded {images.shape[0]} frames at {args.size}x{args.size}")
     cfg = VicaSplatConfig(backbone=VicaNetConfig(img_size=args.size),
@@ -183,7 +208,8 @@ def main(argv=None, device="cuda"):
     res = run_demo(cfg, model.eval(), images, intrinsics_from_fov(args.fov),
                    args.output_dir, window=args.window, overlap=args.overlap,
                    steps_per_segment=args.steps_per_segment,
-                   tag=pathlib.Path(args.image_dir).name, device=device)
+                   tag=pathlib.Path(args.image_dir).name, device=device,
+                   view_mesh=view_mesh, write=lead)
     if res["windows"] is not None:
         print(f"streamed {res['windows']['count']} windows (window {args.window}, "
               f"overlap {args.overlap}); scales "

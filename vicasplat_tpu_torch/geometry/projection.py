@@ -1,8 +1,9 @@
 """Camera projection helpers (port of vicasplat_tpu/geometry/projection.py:
-14-107): `get_fov` for the camera loss, and projection, rays and the pixel
-grid for the epipolar overlap of the evaluation index (geometry/epipolar.py).
-Intrinsics are normalized (pixel coordinates in [0, 1]), extrinsics are c2w
-4x4 matrices, pixel centres sit at (i + 0.5) / size."""
+14-107): `get_fov` for the camera loss, the rigid transforms between camera
+and world space, and projection, rays and the pixel grid for the
+epipolar overlap of the evaluation index (geometry/epipolar.py).
+Intrinsics are normalized (pixel coordinates in [0, 1]), extrinsics are
+c2w 4x4 matrices, pixel centres sit at (i + 0.5) / size."""
 from __future__ import annotations
 
 import torch
@@ -39,6 +40,17 @@ def homogenize_vectors(v: torch.Tensor) -> torch.Tensor:
 
 def transform_rigid(xh: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...j->...i", m, xh)
+
+
+def transform_cam2world(xh: torch.Tensor, c2w: torch.Tensor) -> torch.Tensor:
+    """Homogeneous camera-space points or vectors -> world space."""
+    return transform_rigid(xh, c2w)
+
+
+def transform_world2cam(xh: torch.Tensor, c2w: torch.Tensor) -> torch.Tensor:
+    """Homogeneous world-space points or vectors -> camera space, by the
+    inverse of the c2w matrix."""
+    return transform_rigid(xh, torch.linalg.inv(c2w))
 
 
 def project_camera_space(points: torch.Tensor, intrinsics: torch.Tensor,

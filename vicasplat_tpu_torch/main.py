@@ -12,7 +12,12 @@ logger's scalars every `train.print_log_every_n_steps`, a checkpoint every
 `checkpointing.every_n_train_steps` (weights only, or with
 `save_weights_only: false` the full state), validation visuals every
 `trainer.val_check_interval`, and a resume from the newest checkpoint with
-`checkpointing.resume=true`. With `train.distiller` set (the `distill`
+`checkpointing.resume=true`. Under `torchrun --nproc_per_node=N` (the
+environment's WORLD_SIZE > 1) the step is data-parallel by DDP, as JAX
+shards the batch over its data mesh: every rank draws the same global
+batch from the same seed and takes its slice (`parallel.shard_batch`), and
+rank 0 alone prints, logs, checkpoints and renders the validation visuals.
+With `train.distiller` set (the `distill`
 experiment), a frozen DUSt3R teacher (`_maybe_distiller`) joins the step:
 "distill_only" before `train.distill_only_steps`, "distill" up to
 `train.distill_max_steps`, then "full" (`training.step.pick_phase`).
@@ -134,6 +139,7 @@ def train(cfg, device="cuda"):
     """The train loop (JAX `main.train`); returns {"model", "optimizer",
     "step", "logs": [each logged step's scalars]}."""
     from .data.data_module import DataModule
+    from .parallel.mesh import shard_batch
     from .training import make_train_step
     from .training.optimizer import make_schedule
     from .training.step import pick_phase
@@ -141,6 +147,10 @@ def train(cfg, device="cuda"):
     from .utils.loggers import make_logger
     from .utils.step_tracker import StepTracker
 
+    ddp = _ddp_setup(device)
+    if ddp is not None:
+        device = ddp["device"]
+    lead = ddp is None or ddp["rank"] == 0
     train_cfg, model, optimizer = build_all(cfg, device)
     step_tracker = StepTracker()
     dm = DataModule(cfg.dataset, cfg.data_loader, step_tracker, device=device)
@@ -156,13 +166,15 @@ def train(cfg, device="cuda"):
             print(f"resumed full train state from {latest} at step {start_step}")
     lpips_fn = _maybe_lpips(cfg, device)
     teacher_fn = _maybe_distiller(cfg, device)
+    kw = {} if ddp is None else {"ddp_group": ddp["group"]}
     step_fn = make_train_step(train_cfg, model, optimizer, lpips_fn=lpips_fn,
-                              teacher_fn=teacher_fn)
-    writer = make_logger(cfg)
+                              teacher_fn=teacher_fn, **kw)
+    writer = make_logger(cfg) if lead else None
 
     def save_ckpt(step):
-        ckpt.save(step, model,
-                  None if cfg.checkpointing.save_weights_only else optimizer)
+        if lead:
+            ckpt.save(step, model,
+                      None if cfg.checkpointing.save_weights_only else optimizer)
 
     every = cfg.train.print_log_every_n_steps
     max_steps = cfg.trainer.max_steps if cfg.trainer.max_steps > 0 else 10**9
@@ -175,6 +187,8 @@ def train(cfg, device="cuda"):
         try:
             for batch in loader:
                 batch = {k: v for k, v in batch.items() if k != "scene"}
+                if ddp is not None:
+                    batch = shard_batch(ddp["mesh"], batch)
                 phase = pick_phase(train_cfg, global_step, teacher_fn is not None)
                 if (cfg.trainer.profile_dir and prof is None
                         and global_step == cfg.trainer.profile_start):
@@ -186,7 +200,7 @@ def train(cfg, device="cuda"):
                         == cfg.trainer.profile_start + cfg.trainer.profile_steps):
                     _stop_profiler(prof, device, cfg.trainer.profile_dir,
                                    cfg.trainer.profile_steps)
-                if global_step % every == 0:
+                if global_step % every == 0 and lead:
                     logs = {k: float(v) for k, v in logs.items()}
                     dt, t_last = time.perf_counter() - t_last, time.perf_counter()
                     print(f"step {global_step} | loss {logs['loss']:.4f} | psnr "
@@ -201,7 +215,7 @@ def train(cfg, device="cuda"):
                                           global_step)
                 if ckpt.should_save(global_step):
                     save_ckpt(global_step)
-                if (cfg.trainer.val_check_interval > 0
+                if (cfg.trainer.val_check_interval > 0 and lead
                         and global_step % cfg.trainer.val_check_interval == 0):
                     _validation_visuals(cfg, model, dm, global_step, writer,
                                         train_cfg.dtype)
@@ -211,12 +225,35 @@ def train(cfg, device="cuda"):
             # stop the prefetch threads a max_steps break leaves mid-epoch
             loader.close()
     save_ckpt(global_step)
-    ckpt.finalize()
+    if lead:
+        ckpt.finalize()
     if writer is not None:
         writer.close()
-    print("training done")
+    if ddp is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=ddp["group"])
+    if lead:
+        print("training done")
     return {"model": model, "optimizer": optimizer, "step": global_step,
             "logs": logged}
+
+
+def _ddp_setup(device):
+    """Under torchrun (WORLD_SIZE > 1): join the group (NCCL on the card,
+    gloo on the CPU), each rank on its LOCAL_RANK card. None otherwise."""
+    import os
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    from .parallel.mesh import init_distributed, make_mesh
+
+    rank, world = init_distributed(device)
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    mesh = make_mesh()
+    return {"rank": rank, "world": world, "device": device, "mesh": mesh,
+            "group": mesh.get_group()}
 
 
 def _start_profiler(device):

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quant import QuantLinear, linear_w8a8
+from .moe import ExpertLinear
 
 
 def _dtype(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.dtype:
@@ -149,9 +150,14 @@ def xavier_(t: torch.Tensor, fan_in: int, fan_out: int,
 
 @torch.no_grad()
 def init_default_(model: nn.Module, gen: torch.Generator) -> None:
-    """Xavier-uniform weights with zero biases for linears and convs (conv
-    fans count the kernel window on both sides), unit layer norms."""
+    """Xavier-uniform weights with zero biases for linears, MoE expert
+    stacks and convs (conv fans count the kernel window on both sides),
+    unit layer norms."""
     for m in model.modules():
+        if isinstance(m, ExpertLinear):  # each expert as JAX draws it
+            xavier_(m.w, m.w.shape[1], m.w.shape[2], gen)
+            m.b.zero_()
+            continue
         if isinstance(m, nn.Linear):
             xavier_(m.weight, m.in_features, m.out_features, gen)
         elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):

@@ -115,6 +115,12 @@ class VicaSplat(nn.Module):
         if not bb.use_intrinsic_embedding:
             self.camera_intrinsic_head = CameraHead(bb.dec_embed_dim, 2)
 
+    def forward(self, fn, *args, **kwargs):
+        """fn(self, *args, **kwargs): the entry through which a DDP or FSDP2
+        wrapper sees the model's forward (training/step.py); the model
+        itself is applied by the functions of this module."""
+        return fn(self, *args, **kwargs)
+
 
 @torch.no_grad()
 def init_vicasplat(cfg: VicaSplatConfig, generator: torch.Generator,
@@ -162,7 +168,8 @@ def decode_camera(pred: torch.Tensor, camera_type: str):
 def vicasplat_forward(model: VicaSplat, context: dict, global_step: int = 0, *,
                       distill: bool = False, compute_viewspace_depth: bool = False,
                       dtype=torch.bfloat16, remat: bool = False,
-                      remat_policy: Optional[str] = None) -> dict:
+                      remat_policy: Optional[str] = None,
+                      parallel: Optional[dict] = None) -> dict:
     """Frames -> Gaussians and poses. Heads run in landscape: a portrait
     batch (H > W) has its token grids and head outputs transposed.
 
@@ -172,7 +179,9 @@ def vicasplat_forward(model: VicaSplat, context: dict, global_step: int = 0, *,
     the centre head, without the Gaussian-parameter head and the adapter;
     `compute_viewspace_depth=True` adds `context_view_depths` (B, T, H, W),
     the z of R^-1 (p - t) in each context camera (c2w `extrinsics` of the
-    context), else None."""
+    context), else None. `parallel` holds the backbone's mesh arguments
+    (VicaNet.forward: pipeline_group, pipeline_n_micro, sp_mesh, ep_group,
+    moe_token_group), as JAX's pipeline_mesh and sp_mesh."""
     cfg = model.cfg
     bb = cfg.backbone
     images = context["image"]
@@ -180,7 +189,7 @@ def vicasplat_forward(model: VicaSplat, context: dict, global_step: int = 0, *,
 
     _, camera_embeds, global_embeds, interms = model.backbone(
         images, context.get("intrinsics"), dtype=dtype, remat=remat,
-        remat_policy=remat_policy)
+        remat_policy=remat_policy, **(parallel or {}))
 
     pred_raw = camera_head(model.camera_extrinsic_head, camera_embeds, dtype)
     pred_extrins, pred_mats = decode_camera(pred_raw, cfg.camera_type)

@@ -41,16 +41,81 @@ def pack_payload(splats: Splats) -> torch.Tensor:
     return torch.cat([cols, pad], dim=-1)
 
 
-def _key_layout(image_shape: tuple, tile_px: int):
-    """-> (tiles_y, tiles_x, tile_bits, depth_shift) of the u32 sort keys."""
+# The packed row gather (JAX `tiles.py:63-145`): each splat's row packs
+# into eight f32 words, mean, conic and depth exact and (alpha, r), (g, b)
+# as bf16 pairs in one word each, so a gathered row is 32 bytes instead of
+# 64. Only alpha and colour round to bf16. The backward is the plain
+# gather's adjoint (a row scatter-add), so gradients are those of the
+# unpacked path at the rounded forward.
+
+def _pack2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two f32 -> one f32 word holding (bf16(a) << 16) | bf16(b)."""
+    ha = a.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+    hb = b.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+    return ((ha << 16) | hb).view(torch.float32)
+
+
+def _unpack2(w: torch.Tensor):
+    u = w.contiguous().view(torch.int32)
+
+    def half(bits):
+        return bits.to(torch.int16).view(torch.bfloat16).float()
+
+    return half((u >> 16) & 0xFFFF), half(u & 0xFFFF)
+
+
+def _pack_words(payload: torch.Tensor) -> torch.Tensor:
+    """(N, 16) f32 payload -> (N, 8) f32 words."""
+    p = payload
+    return torch.stack([p[:, 0], p[:, 1], p[:, 2], p[:, 3], p[:, 4], p[:, 9],
+                        _pack2(p[:, 5], p[:, 6]), _pack2(p[:, 7], p[:, 8])], -1)
+
+
+def _unpack_words(rows: torch.Tensor) -> torch.Tensor:
+    """(..., 8) f32 words -> (..., 16) payload rows."""
+    alpha, r = _unpack2(rows[..., 6])
+    g, b = _unpack2(rows[..., 7])
+    pad = torch.zeros_like(rows[..., 0])
+    return torch.stack([rows[..., 0], rows[..., 1], rows[..., 2], rows[..., 3],
+                        rows[..., 4], alpha, r, g, b, rows[..., 5]] + [pad] * 6, -1)
+
+
+class _PackedRowGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, payload, ids):
+        ctx.save_for_backward(ids)
+        ctx.n = payload.shape[0]
+        return _unpack_words(_pack_words(payload)[ids])
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        c = g.shape[-1]
+        gp = g.new_zeros(ctx.n, c).index_add_(0, ids.reshape(-1), g.reshape(-1, c))
+        return gp, None
+
+
+def packed_row_gather(payload: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """payload (N, 16) f32, ids (T, K) -> (T, K, 16) rows, alpha and colour
+    rounded to bf16."""
+    return _PackedRowGather.apply(payload, ids)
+
+
+def _gather_rows(splats: Splats, ids: torch.Tensor, packed: bool) -> torch.Tensor:
+    table = pack_payload(splats)
+    return packed_row_gather(table, ids) if packed else table[ids]
+
+
+# Both binnings sort int64 keys: the tile above 32 bits of depth order (the
+# depth's bits, or its rank). JAX packs them into u32 keys, which leave
+# 32 - tile_bits bits of the depth.
+DEPTH_SHIFT = 32
+
+
+def _tile_grid(image_shape: tuple, tile_px: int):
+    """-> (tiles_y, tiles_x)."""
     H, W = image_shape
-    th, tw = -(-H // tile_px), -(-W // tile_px)
-    tile_bits = (th * tw + 1).bit_length()  # values 0..num_tiles (sentinel)
-    depth_shift = 32 - tile_bits
-    if depth_shift < 16:
-        raise ValueError(f"{th * tw} tiles leave only {depth_shift} depth "
-                         f"bits; raise tile_px for this resolution")
-    return th, tw, tile_bits, depth_shift
+    return -(-H // tile_px), -(-W // tile_px)
 
 
 def _windows(splats: Splats, th: int, tw: int, tile_px: int, dup_hw: tuple):
@@ -74,41 +139,46 @@ def _windows(splats: Splats, th: int, tw: int, tile_px: int, dup_hw: tuple):
     return wy0, wx0, ty1, tx1, r > 0
 
 
-def _depth_bits(splats: Splats, depth_shift: int) -> torch.Tensor:
-    # positive float32 bits order like the floats; the low mantissa bits go
+def _depth_bits(splats: Splats) -> torch.Tensor:
+    # positive float32 bits order like the floats
     depth = splats.depth.float().clamp(min=1e-6)
-    return depth.view(torch.int32).long() >> (32 - depth_shift)
+    return depth.view(torch.int32).long()
 
 
-def _segments(sorted_key, num_tiles, depth_shift, length):
+def _segments(sorted_key, num_tiles, length):
     """[starts, ends) of each tile's run of sorted keys, and the clamped
     start of a `length`-wide window over it."""
     tile_keys = torch.arange(num_tiles, device=sorted_key.device,
-                             dtype=torch.long) << depth_shift
+                             dtype=torch.long) << DEPTH_SHIFT
     starts = torch.searchsorted(sorted_key, tile_keys, side="left")
-    ends = torch.searchsorted(sorted_key, tile_keys + (1 << depth_shift),
+    ends = torch.searchsorted(sorted_key, tile_keys + (1 << DEPTH_SHIFT),
                               side="left")
     return starts, ends, starts.clamp(max=length)
 
 
 def bin_splats(splats: Splats, image_shape: tuple, tile_px: int,
-               dup_hw: tuple, max_per_tile: int) -> torch.Tensor:
-    """-> payload (num_tiles, K, 16); alpha is 0 on empty slots."""
-    th, tw, _, depth_shift = _key_layout(image_shape, tile_px)
+               dup_hw: tuple, max_per_tile: int,
+               packed_gather: bool = False) -> torch.Tensor:
+    """-> payload (num_tiles, K, 16); alpha is 0 on empty slots.
+    packed_gather gathers 32-byte packed rows (`packed_row_gather`)."""
+    th, tw = _tile_grid(image_shape, tile_px)
     num_tiles = th * tw
     n = splats.mean2d.shape[0]
     KH, KW = dup_hw
     dev = splats.mean2d.device
     wy0, wx0, ty1, tx1, live = _windows(splats, th, tw, tile_px, dup_hw)
-    depth_bits = _depth_bits(splats, depth_shift)
-    sentinel = num_tiles << depth_shift
+    # the keys hold all 32 bits of the depth, so entries sort in exact depth
+    # order, as the CUDA rasterizer's 64-bit keys do; in JAX's u32 keys
+    # depths within 2^-17 of each other tie and composite in any order
+    depth_bits = _depth_bits(splats)
+    sentinel = num_tiles << DEPTH_SHIFT
 
     keys = []
     for dy in range(KH):
         for dx in range(KW):
             tyy, txx = wy0 + dy, wx0 + dx
             ok = (tyy <= ty1) & (txx <= tx1) & live
-            key = ((tyy * tw + txx) << depth_shift) | depth_bits
+            key = ((tyy * tw + txx) << DEPTH_SHIFT) | depth_bits
             keys.append(torch.where(ok, key, torch.full_like(key, sentinel)))
     key = torch.cat(keys)  # (KH * KW * N,), slot-major as in JAX
     sorted_key, order = torch.sort(key)
@@ -121,11 +191,10 @@ def bin_splats(splats: Splats, image_shape: tuple, tile_px: int,
         sorted_idx = torch.cat([sorted_idx,
                                 sorted_idx.new_zeros(max_per_tile - L)])
         L = max_per_tile
-    starts, ends, starts_i = _segments(sorted_key, num_tiles, depth_shift,
-                                       L - max_per_tile)
+    starts, ends, starts_i = _segments(sorted_key, num_tiles, L - max_per_tile)
     pos = starts_i[:, None] + torch.arange(max_per_tile, device=dev)[None, :]
     slot_valid = (pos >= starts[:, None]) & (pos < ends[:, None])
-    payload = pack_payload(splats)[sorted_idx[pos]]  # (num_tiles, K, 16)
+    payload = _gather_rows(splats, sorted_idx[pos], packed_gather)  # (tiles, K, 16)
     payload[..., 5] *= slot_valid.to(payload.dtype)
     return payload
 
@@ -134,18 +203,24 @@ U32_FULL = 0xFFFFFFFF
 
 
 def bin_splats_origin(splats: Splats, image_shape: tuple, tile_px: int,
-                      dup_hw: tuple, max_per_tile: int) -> torch.Tensor:
+                      dup_hw: tuple, max_per_tile: int,
+                      packed_gather: bool = False) -> torch.Tensor:
     """Origin binning, with `bin_splats`'s payload contract.
 
-    One sort of N (origin tile | depth) keys, whose index word carries a
+    One sort of N (origin tile | depth rank) keys, whose index word carries a
     bitmap of the window slots inside the splat's rect above the splat id.
     Tile t's candidates are the front S = K entries of the KH*KW segments
     whose origin is t - (dy, dx) and whose bit (dy, dx) is set; each is a
-    u32 word (depth | candidate slot), and the bitonic top-K (K4) keeps the
-    K nearest. As in JAX, a segment is capped at K before the merge and the
-    merged words keep 32 - log2(m) depth bits; ties order arbitrarily.
+    u32 word (rank | candidate slot), and the bitonic top-K (K4) keeps the
+    K nearest. As in JAX, a segment is capped at K before the merge. The
+    port orders by each splat's rank in the exact global depth order, not
+    by its depth bits: the sort key holds the rank whole, and a merged word
+    keeps its top 32 - log2(m) bits, all of it while the rank fits them
+    (n <= 2^18 at dup (4, 4) and K 1024). JAX's words keep that many bits
+    of the depth itself, so its splats within 2^-9 to 2^-12 of each
+    other's depth tie and composite in an arbitrary order.
     """
-    th, tw, tile_bits, depth_shift = _key_layout(image_shape, tile_px)
+    th, tw = _tile_grid(image_shape, tile_px)
     num_tiles = th * tw
     n = splats.mean2d.shape[0]
     KH, KW = dup_hw
@@ -156,7 +231,8 @@ def bin_splats_origin(splats: Splats, image_shape: tuple, tile_px: int,
                          "packed u32 index")
     dev = splats.mean2d.device
     wy0, wx0, ty1, tx1, live = _windows(splats, th, tw, tile_px, dup_hw)
-    depth_bits = _depth_bits(splats, depth_shift)
+    rank = torch.empty(n, dtype=torch.long, device=dev)
+    rank[torch.argsort(splats.depth)] = torch.arange(n, device=dev)
 
     valid_bits = torch.zeros(n, dtype=torch.long, device=dev)
     for dy in range(KH):
@@ -164,8 +240,9 @@ def bin_splats_origin(splats: Splats, image_shape: tuple, tile_px: int,
             ok = (wy0 + dy <= ty1) & (wx0 + dx <= tx1) & live
             valid_bits |= ok.long() << (dy * KW + dx)
     origin = wy0 * tw + wx0
-    key = torch.where(valid_bits > 0, (origin << depth_shift) | depth_bits,
-                      torch.full_like(origin, num_tiles << depth_shift))
+    sentinel = num_tiles << DEPTH_SHIFT
+    key = torch.where(valid_bits > 0, (origin << DEPTH_SHIFT) | rank,
+                      torch.full_like(origin, sentinel))
     pidx = (valid_bits << idx_bits) | torch.arange(n, device=dev)
     sorted_key, order = torch.sort(key)
     sorted_pidx = pidx[order]
@@ -173,10 +250,10 @@ def bin_splats_origin(splats: Splats, image_shape: tuple, tile_px: int,
     S = max_per_tile
     L = n
     if L < S:  # tiny scene: pad with keys past every tile, dead ids
-        sorted_key = torch.cat([sorted_key, sorted_key.new_full((S - L,), U32_FULL)])
+        sorted_key = torch.cat([sorted_key, sorted_key.new_full((S - L,), sentinel)])
         sorted_pidx = torch.cat([sorted_pidx, sorted_pidx.new_zeros(S - L)])
         L = S
-    starts, ends, starts_i = _segments(sorted_key, num_tiles, depth_shift, L - S)
+    starts, ends, starts_i = _segments(sorted_key, num_tiles, L - S)
     pos = starts_i[:, None] + torch.arange(S, device=dev)[None, :]
     in_seg = (pos >= starts[:, None]) & (pos < ends[:, None])
     seg_key, seg_pidx = sorted_key[pos], sorted_pidx[pos]  # (num_tiles, S)
@@ -184,10 +261,8 @@ def bin_splats_origin(splats: Splats, image_shape: tuple, tile_px: int,
     # merged candidate width, padded to a power of two for the bitonic net
     m = 1 << (n_slots * S - 1).bit_length()
     slot_bits = m.bit_length() - 1
-    dkeep = 32 - slot_bits  # depth bits kept in the merged word
-    # JAX drops the tile bits by u32 wrap-around (key << tile_bits); int64
-    # keeps them, so mask to 32 bits before the right shift
-    seg_depth = ((seg_key << tile_bits) & U32_FULL) >> (32 - dkeep)
+    dkeep = 32 - slot_bits  # rank bits kept in the merged word
+    seg_depth = (seg_key & U32_FULL) >> max(idx_bits - dkeep, 0)
     idx_mask = (1 << idx_bits) - 1
 
     t_idx = torch.arange(num_tiles, device=dev)
@@ -215,7 +290,7 @@ def bin_splats_origin(splats: Splats, image_shape: tuple, tile_px: int,
     merged = from_u32_bits(bitonic_topk(to_u32_bits(cand), max_per_tile))
     slot_valid = merged != U32_FULL
     src = (merged & (m - 1)).clamp(max=cand_id.shape[1] - 1)
-    payload = pack_payload(splats)[torch.gather(cand_id, 1, src)]
+    payload = _gather_rows(splats, torch.gather(cand_id, 1, src), packed_gather)
     payload[..., 5] *= slot_valid.to(payload.dtype)
     return payload
 

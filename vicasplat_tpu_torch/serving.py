@@ -27,6 +27,7 @@ import copy
 import dataclasses
 import io
 import json
+import statistics
 import threading
 import time
 from typing import Optional
@@ -98,9 +99,10 @@ class Program:
     `launches` holds the kernel launches counted during the capture, which
     each replay repeats; `pool_bytes` the memory the capture reserved."""
 
-    def __init__(self, fn, device: torch.device):
+    def __init__(self, fn, device: torch.device, capture: bool = True):
         self.fn = fn
         self.device = device
+        self.capture = capture
         self.graph = None
         self.static_in = self.static_out = None
         self.launches: dict = {}
@@ -129,7 +131,7 @@ class Program:
 
     def __call__(self, *inputs):
         self.calls += 1
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             return self.fn(*inputs)
         if self.graph is None:
             self._capture(inputs)
@@ -191,16 +193,19 @@ class InferenceEngine:
         weights int8 (W8A8), from the float weights, except the families
         whose path holds a `quantize_exclude` substring (default
         `quant.SENSITIVE_PATHS`, the center head; pass () to quantize
-        all). `view_mesh` (renders sharded over several devices) is not
-        ported."""
-        if view_mesh is not None:
-            raise NotImplementedError(
-                "view_mesh renders across devices (parallel/view_parallel.py), "
-                "which waits for the parallelism port (ROADMAP §1 item 6, M12)")
+        all).
+
+        view_mesh: a 1-D DeviceMesh (parallel.make_mesh) or process group:
+        each render splits its views over the ranks
+        (parallel/view_parallel.py) and every rank returns all of them.
+        Every rank of the mesh must make the same calls; such a render runs
+        eagerly, outside a CUDA graph, since the capture would hold the
+        collective."""
         if sum(x is not None for x in (model, params, ckpt)) > 1:
             raise ValueError("pass at most one of model, params and ckpt")
         self.cfg = cfg
         self.dec_cfg = decoder
+        self.view_mesh = view_mesh
         self.dtype = dtype
         self.adaptive_caps = adaptive_caps
         self.device = torch.device(device)
@@ -255,6 +260,12 @@ class InferenceEngine:
                    dataclasses.replace(self.dec_cfg, rasterize=raster_cfg))
 
         def fn(gaussians, extrinsics, intrinsics, near, far):
+            if self.view_mesh is not None:
+                from .parallel.view_parallel import decoder_forward_view_sharded
+
+                return decoder_forward_view_sharded(
+                    dec_cfg, gaussians, extrinsics, intrinsics, near, far,
+                    image_shape, mesh=self.view_mesh)
             return decoder_forward(dec_cfg, gaussians, extrinsics, intrinsics,
                                    near, far, image_shape)
 
@@ -265,7 +276,7 @@ class InferenceEngine:
         key = (tuple(vshape), tuple(image_shape), raster_cfg, gaussian_shapes)
         return self._render.get(
             key, lambda: Program(self._render_raw(tuple(image_shape), raster_cfg),
-                                 self.device))
+                                 self.device, capture=self.view_mesh is None))
 
     def _select_caps(self, scene: SceneBatch, extrinsics, intrinsics, image_shape):
         """Scene-level adaptive caps: the first view probed once, eagerly."""
@@ -330,11 +341,12 @@ class InferenceEngine:
 
     @torch.no_grad()
     def throughput(self, images01, intrinsics=None, iters: int = 12) -> dict:
-        """Scenes a second of the reconstruct program: n runs back to back,
+        """Scenes a second of the reconstruct program. On a CUDA engine, n
+        replays of the captured graph back to back timed by CUDA events,
         (run(iters) - run(2)) / (iters - 2), so the fixed cost of a call
-        cancels. On a CUDA engine the runs are replays of the captured graph
-        timed by CUDA events; on a CPU engine eager calls timed by the
-        host's clock."""
+        cancels. On a CPU engine, the median of `iters` eager calls, each
+        timed by the host's clock: a difference of two host timings can
+        come out negative on a loaded host."""
         self.reconstruct(images01, intrinsics)  # captures on first use
         images01 = self._to_device(images01)
         intrinsics = self._to_device(intrinsics)
@@ -344,11 +356,6 @@ class InferenceEngine:
             cuda = self.device.type == "cuda"
 
             def run(n):
-                if not cuda:
-                    t0 = time.perf_counter()
-                    for _ in range(n):
-                        prog.fn(images01, intrinsics)
-                    return time.perf_counter() - t0
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
                 prog.replay(n)
@@ -356,8 +363,17 @@ class InferenceEngine:
                 end.synchronize()
                 return start.elapsed_time(end) / 1e3
 
-            run(2), run(iters)
-            dt = (run(iters) - run(2)) / (iters - 2)
+            def one_call():
+                t0 = time.perf_counter()
+                prog.fn(images01, intrinsics)
+                return time.perf_counter() - t0
+
+            if cuda:
+                run(2), run(iters)
+                dt = (run(iters) - run(2)) / (iters - 2)
+            else:
+                one_call()
+                dt = statistics.median(one_call() for _ in range(iters))
         b = images01.shape[0]
         return {"latency_s": dt, "scenes_per_s": b / dt, "batch": b,
                 "method": "cuda-graph-replay" if cuda else "eager"}

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -79,40 +80,55 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (FSDP2's sharded parameters and
+    gradients), a plain tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 class AdamW:
     """The optimizer over a module's parameters, updated in place from their
     `.grad`. State: the step count, mu, nu and the optional EMA (JAX
     `_track_param_ema`: ema <- decay ema + (1 - decay) p of the new
-    parameters, starting from the initial ones), keyed by parameter name."""
+    parameters, starting from the initial ones), keyed by parameter name.
+    Parameters on the meta device (blocks of other pipeline stages) are left
+    out; a DTensor parameter (FSDP2) is updated on its local shard, and then
+    the clipping norm must come from the caller (`step(g_norm=...)`)."""
 
     def __init__(self, model: nn.Module, cfg: OptimizerConfig):
         self.cfg = cfg
-        self.params = dict(model.named_parameters())
+        self.params = {n: p for n, p in model.named_parameters()
+                       if not p.is_meta}
         self.mult = lr_multipliers(model, cfg)
         self.schedule = make_schedule(cfg)
         mu_dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
             cfg.moment_dtype]
         self.count = 0
-        self.mu = {n: torch.zeros_like(p, dtype=mu_dtype)
+        self.mu = {n: torch.zeros_like(local(p), dtype=mu_dtype)
                    for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.ema = ({n: p.detach().clone() for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(local(p)) for n, p in self.params.items()}
+        self.ema = ({n: local(p).detach().clone() for n, p in self.params.items()}
                     if cfg.ema_decay > 0.0 else None)
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, g_norm: Optional[torch.Tensor] = None) -> None:
+        """One update from the parameters' `.grad`; g_norm is the gradients'
+        global norm when they are spread over ranks (default: computed
+        here from the local ones)."""
         cfg = self.cfg
         b1, b2 = cfg.betas
-        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+        grads = {n: torch.zeros_like(local(p)) if p.grad is None else local(p.grad)
                  for n, p in self.params.items()}
-        g_norm = global_norm(grads.values())
+        if g_norm is None:
+            g_norm = global_norm(grads.values())
         clip = bool(g_norm >= cfg.gradient_clip_val)
         count = self.count + 1
         one = torch.ones((), dtype=torch.float32)
         bc1 = (1 - (one * b1) ** count).item()  # float32, as optax's
         bc2 = (1 - (one * b2) ** count).item()
         lr = self.schedule(self.count)
-        for n, p in self.params.items():
+        for n, param in self.params.items():
+            p = local(param)
             g = grads[n]
             if clip:
                 g = (g / g_norm) * cfg.gradient_clip_val

@@ -25,7 +25,7 @@ from ..loss.losses import (
 )
 from ..loss.conf_point import Regr3DConfig, regr3d_loss
 from ..models.vicasplat import VicaSplatConfig, vicasplat_forward
-from .optimizer import AdamW, OptimizerConfig, global_norm
+from .optimizer import AdamW, OptimizerConfig, local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,14 +89,16 @@ def distillation_loss(out: dict, teacher_fn, batch: dict, anchor: int):
 
 def compute_loss(model: nn.Module, cfg: TrainConfig, batch: dict,
                  global_step: int, lpips_fn=None, phase: str = "full",
-                 teacher_fn=None, anchor: Optional[int] = None):
+                 teacher_fn=None, anchor: Optional[int] = None,
+                 parallel: Optional[dict] = None):
     """batch: {"context": {image (B, T, H, W, 3) in [0, 1], intrinsics,
     extrinsics, near, far}, "target": {...}}. The context images are
     shimmed to [-1, 1] for the encoder. `phase` is one of PHASES; the two
     distillation phases need `teacher_fn` and take the anchor pair's first
     frame `anchor` (default: `anchor_frame(global_step, 0, T)`). Returns
     (loss, logs); "distill_only" logs the PSNR of an MSE of 1 (no render),
-    as JAX does."""
+    as JAX does. `parallel`: the backbone's mesh arguments
+    (vicasplat_forward)."""
     if phase not in PHASES:
         raise ValueError(f"phase {phase!r} is not one of {PHASES}")
     if phase != "full" and teacher_fn is None:
@@ -106,7 +108,8 @@ def compute_loss(model: nn.Module, cfg: TrainConfig, batch: dict,
     out = vicasplat_forward(
         model, dict(ctx, image=ctx["image"] * 2.0 - 1.0), global_step,
         distill=phase == "distill_only", dtype=dtype, remat=cfg.remat,
-        remat_policy=None if cfg.remat_policy == "none" else cfg.remat_policy)
+        remat_policy=None if cfg.remat_policy == "none" else cfg.remat_policy,
+        parallel=parallel)
     losses = {"camera": camera_loss(out["pred_extrins"], ctx["extrinsics"],
                                     out["pred_intrins"], ctx.get("intrinsics"),
                                     cfg.camera)}
@@ -143,8 +146,47 @@ def pick_phase(cfg: TrainConfig, global_step: int, has_teacher: bool) -> str:
     return "full"
 
 
+def _wrap_ddp(model: nn.Module, group):
+    from torch.nn.parallel import DistributedDataParallel
+
+    dev = next(model.parameters()).device
+    return DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == "cuda" else None,
+        process_group=group, broadcast_buffers=False,
+        # the distill_only phase leaves the Gaussian-parameter head unused
+        find_unused_parameters=True)
+
+
+def _sq_norm_sum(params, grads, pipeline_group, fsdp_group):
+    """The sum of squares of every gradient of the whole model: a DTensor
+    gradient's shards summed over the FSDP group, a pipeline stage's block
+    gradients summed over the stages, anything else counted once."""
+    import torch.distributed as dist
+
+    rep = torch.zeros((), device=grads[0].device)
+    split = torch.zeros((), device=grads[0].device)
+    for p, g in zip(params, grads):
+        sq = (local(g).float() ** 2).sum()
+        if hasattr(g, "to_local") or (pipeline_group is not None
+                                      and _in_block_stack(p)):
+            split = split + sq
+        else:
+            rep = rep + sq
+    group = fsdp_group if fsdp_group is not None else pipeline_group
+    if group is not None:
+        dist.all_reduce(split, group=group)
+    return rep + split
+
+
+def _in_block_stack(p) -> bool:
+    """A parameter of a block that runs on one pipeline stage only (marked
+    by parallel/pp.pipeline_scan)."""
+    return getattr(p, "_pipeline_block", False)
+
+
 def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
-                    lpips_fn=None, teacher_fn=None):
+                    lpips_fn=None, teacher_fn=None, *, ddp_group=None,
+                    pipeline_group=None, pipeline_n_micro: Optional[int] = None):
     """train_step(batch, global_step, phase="full") -> logs: one optimizer
     update of `model` in place. With accumulate_steps = A the batch splits
     into A contiguous micro-batches; their gradients, loss and logs are
@@ -153,23 +195,79 @@ def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
     draws its anchor pair by `anchor_frame(step, i, T)`. In "distill_only"
     the Gaussian-parameter head takes no part: its gradients are zeros, and
     AdamW still decays it, as optax does. Non-finite gradient entries
-    become zero in each micro-batch (the NaN guard), before the average and
-    the clip; logs["grad_norm"] is the norm of the averaged gradients before
-    clipping, and `train_step.nonfinite` counts the entries the guard zeroed
-    in the last step (a tensor, read without a host sync)."""
-    params = [p for p in model.parameters() if p.requires_grad]
+    become zero in each micro-batch's gradient (the NaN guard), before the
+    average and the clip; logs["grad_norm"] is the norm of the averaged
+    gradients before clipping, and `train_step.nonfinite` counts the entries
+    the guard zeroed in the last step (a tensor, read without a host sync).
+
+    Every route runs the same step: the model's forward (`VicaSplat.forward`
+    applies compute_loss) through its wrapper, if any, then `.backward()`,
+    then the guard on the gradient that the route has reduced. Each equals
+    the single-process step on the whole batch, guard included:
+    - ddp_group: data parallelism by DDP. Each rank passes its own slice of
+      the global batch (parallel/mesh.shard_batch) and renders only its own
+      examples. DDP averages each micro-batch's gradients across the group
+      (no `no_sync`), so the guard sees the micro-batch's gradient of the
+      whole batch, as JAX's data mesh guards it.
+    - a model sharded by parallel/mesh.shard_params_fsdp (FSDP2): the same
+      on the local shards, the small replicated leaves' gradients averaged
+      here.
+    - pipeline_group (pipeline_n_micro): the backbone's stacks as a GPipe
+      pipeline (parallel/pp.py; shard_params_pp on the model's stacks);
+      each stage updates its own blocks, the clip takes the norm over all.
+    Sequence, tensor and expert parallelism are forward routes
+    (VicaNet.forward) and take no part in the step."""
+    import torch.distributed as dist
+
+    fsdp_group = getattr(model, "fsdp_group", None)
+    params = [p for p in model.parameters() if p.requires_grad and not p.is_meta]
+    replicated = {id(p) for p in getattr(model, "fsdp_replicated", ())}
+    entry = _wrap_ddp(model, ddp_group) if ddp_group is not None else model
+    parallel = {}
+    if pipeline_group is not None:
+        parallel.update(pipeline_group=pipeline_group,
+                        pipeline_n_micro=pipeline_n_micro)
+    if ddp_group is not None and cfg.model.backbone.moe_experts:
+        parallel["moe_token_group"] = ddp_group  # route the whole batch
+    reduce_group = ddp_group if ddp_group is not None else fsdp_group
+
+    def average(t, group):
+        if group is None:
+            return t
+        t = t.detach().clone()
+        dist.all_reduce(t, group=group)
+        return t / dist.get_world_size(group)
 
     def grads_once(batch, global_step, phase, micro=0):
         anchor = anchor_frame(global_step, micro, batch["context"]["image"].shape[1])
-        loss, logs = compute_loss(model, cfg, batch, global_step, lpips_fn,
-                                  phase, teacher_fn, anchor)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            params, torch.autograd.grad(loss, params, allow_unused=True))]
-        finite = [torch.isfinite(g) for g in grads]
-        train_step.nonfinite += sum((~f).sum() for f in finite)
-        grads = [torch.where(f, g, torch.zeros_like(g))
-                 for f, g in zip(finite, grads)]
-        return loss.detach(), {k: v.detach() for k, v in logs.items()}, grads
+        for p in params:
+            p.grad = None
+        loss, logs = entry(compute_loss, cfg, batch, global_step, lpips_fn,
+                           phase, teacher_fn, anchor, parallel)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        grads = [average(g, fsdp_group) if id(p) in replicated else g
+                 for p, g in zip(params, grads)]
+        for g in grads:  # the NaN guard, on each rank's own shard
+            gl = local(g)
+            f = torch.isfinite(gl)
+            train_step.nonfinite += (~f).sum()
+            gl.copy_(torch.where(f, gl, torch.zeros_like(gl)))
+        logs = {k: average(v.detach(), reduce_group) for k, v in logs.items()}
+        return average(loss.detach(), reduce_group), logs, grads
+
+    def split(tree, A):
+        if isinstance(tree, dict):
+            return {k: split(v, A) for k, v in tree.items()}
+        if tree.shape[0] % A:
+            raise ValueError(f"batch dim {tree.shape[0]} not divisible "
+                             f"by accumulate_steps={A}")
+        return tree.split(tree.shape[0] // A)
+
+    def pick(tree, i):
+        if isinstance(tree, dict):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return tree[i]
 
     def train_step(batch: dict, global_step: int, phase: str = "full") -> dict:
         train_step.nonfinite = 0
@@ -177,34 +275,24 @@ def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
         if A <= 1:
             loss, logs, grads = grads_once(batch, global_step, phase)
         else:
-            def split(tree):
-                if isinstance(tree, dict):
-                    return {k: split(v) for k, v in tree.items()}
-                if tree.shape[0] % A:
-                    raise ValueError(f"batch dim {tree.shape[0]} not divisible "
-                                     f"by accumulate_steps={A}")
-                return tree.split(tree.shape[0] // A)
-
-            def pick(tree, i):
-                if isinstance(tree, dict):
-                    return {k: pick(v, i) for k, v in tree.items()}
-                return tree[i]
-
-            micro = split(batch)
+            micro = split(batch, A)
             loss, logs, grads = grads_once(pick(micro, 0), global_step, phase)
             for i in range(1, A):
                 li, lg, gi = grads_once(pick(micro, i), global_step, phase, i)
                 loss = loss + li
                 logs = {k: logs[k] + lg[k] for k in logs}
-                grads = [a + b for a, b in zip(grads, gi)]
+                for a, b in zip(grads, gi):  # no other reference: p.grad was reset
+                    a.add_(b)
+                del gi
             grads = [g * (1.0 / A) for g in grads]
             loss = loss * (1.0 / A)
             logs = {k: v * (1.0 / A) for k, v in logs.items()}
         for p, g in zip(params, grads):
             p.grad = g
-        optimizer.step()
+        g_norm = torch.sqrt(_sq_norm_sum(params, grads, pipeline_group, fsdp_group))
+        optimizer.step(g_norm=g_norm)
         logs["loss"] = loss
-        logs["grad_norm"] = global_norm(grads)
+        logs["grad_norm"] = g_norm
         return logs
 
     return train_step

@@ -9,7 +9,10 @@ joined by dots, with three rules:
   `w` (kh, kw, in, out), and a transposed-conv kernel (kh, kw, out, in),
   become `weight` (out, in, kh, kw) and (in, out, kh, kw): one permutation;
 - `b` becomes `bias` and a layer norm's `scale` becomes `weight`.
-Other leaves (the camera tokens, the LayerScales `ls`) keep their names.
+Other leaves (the camera tokens, the LayerScales `ls`) keep their names,
+and so do an MoE layer's expert stacks (`mlp.experts.fc1.w` (E, d_in,
+d_out), `.b` (E, d_out)), which the port keeps in JAX's layout; in a
+stacked block they are (L, E, ...) and split along L like the rest.
 
 Any tree of the params' structure crosses the same way, a JAX gradient tree
 included (`state_dict_from_jax(grads)` gives the layout of `p.grad`).
@@ -36,6 +39,8 @@ def torch_key(path: list, ndim: int) -> tuple:
     key, axis permutation of its array or None)."""
     *parent, name = path
     perm = None
+    if "experts" in parent:  # MoE expert stacks keep JAX's (E, d_in, d_out)
+        return ".".join(path), None
     if name == "w":
         name = "weight"
         perm = (1, 0) if ndim == 2 else (3, 2, 0, 1)
