@@ -37,10 +37,13 @@ Phases, each printing lines with their seconds:
   tiny-f32  configs/experiment/_tiny_smoke.yaml's widths in float32 through
             K1's float32 route: a forward against the same weights on the
             CPU and one training step, with exact launch counts;
-  k1-f32    K1's float32 route (forward, lse, backward) against the
-            float32 plain versions at head dims 12, 16 and 64, and at the
-            tiny phase's shape, with the same four times and the device
-            time of K1 and of SDPA in float32;
+  k1-f32    K1's float32 route (3xTF32 wgmma; forward, lse, backward)
+            against the float32 plain versions at head dims 12, 16 and 64,
+            and at the tiny phase's shape, and bf16 at head dim 96 (upcast
+            to the route) under the bf16 rules, with the same four times,
+            the device time of K1 and of SDPA in the same dtype, SDPA's
+            kernels by torch.profiler, and each wgmma kernel's registers,
+            spills, shared memory, blocks an SM and HGMMA instructions;
   train     the flagship training step (configs/main.yaml with
             configs/experiment/re10k_8view.yaml: 2 x 8 context frames and
             12 target views of 256^2, bf16 compute over float32 parameters,
@@ -357,8 +360,10 @@ GRAD_TOL = 1e-3
 # rounded to bf16, 2^-9 relative)
 FLASH_BWD_FLOOR = 2e-3
 # K1's float32 route against the float32 plain versions, relative to each
-# tensor's largest entry: both compute in float32 (2^-24 a rounding), in
-# other orders over up to 2,064 keys, and the kernel's exp2 is within 2 ulp
+# tensor's largest entry: the kernels take each float32 product as three
+# TF32 products (within about 2^-22 of it) and sum in float32 in other
+# orders over up to 2,064 keys, and their exp2 is within 2 ulp; a single
+# TF32 product would miss it (tests/test_torch_flash_f32_split.py)
 F32_TOL = 1e-4
 # the _tiny_smoke widths in float32 on the card against the CPU, relative to
 # each output's largest entry: float32 on both sides, summed in other orders
@@ -366,6 +371,9 @@ F32_TOL = 1e-4
 TINY_TOL = 1e-3
 H100_BF16_FLOPS = 989e12    # dense tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores
+# float32-accurate products on the tensor cores: three TF32 products (495
+# TFLOP/s) per float32 product, as K1's float32 route takes them
+H100_TF32X3_FLOPS = 165e12
 H100_BYTES_PER_S = 3.35e12  # HBM3
 # float32 operations of one (pixel, splat) pair in K2: offsets 2, power 8,
 # alpha 4 (one exp), tests 2, weight and blend 9
@@ -869,12 +877,97 @@ def flash_bwd_phase(dev):
     return rows
 
 
+def f32_kernel_report():
+    """K1's float32 route as built: for each wgmma kernel (forward, dkdv, dq)
+    at each padded head dim, ptxas's registers and spill bytes, the HGMMA
+    instructions in its SASS (cuobjdump -sass of the library), and its
+    dynamic shared memory, ring slots and resident blocks an SM
+    (vs_flash_attn_f32_plan). Raises unless every one of them holds HGMMA."""
+    import ctypes
+    import re
+
+    from vicasplat_tpu_torch.kernels import build
+
+    lib_path = build.build("flash_attn_f32")
+    cuobjdump = pathlib.Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            hgmma[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            hgmma[fn] += 1
+    ptxas = ptxas_report(build.build_logs.get("flash_attn_f32", ""))
+    plan = build.load("flash_attn_f32").vs_flash_attn_f32_plan
+    plan.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    plan.restype = ctypes.c_int
+    kinds = {"f32_fwd_kernel": (0, "forward"), "f32_bwd_dkdv_kernel": (1, "dkdv"),
+             "f32_bwd_dq_kernel": (2, "dq")}
+    report = {}
+    for name, count in hgmma.items():
+        m = re.search(r"(f32_fwd_kernel|f32_bwd_dkdv_kernel|f32_bwd_dq_kernel)ILi(\d+)E",
+                      name)
+        if m is None:
+            continue
+        kind, label = kinds[m.group(1)]
+        dp = int(m.group(2))
+        smem, slots, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        rc = plan(kind, dp, ctypes.byref(smem), ctypes.byref(slots), ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"vs_flash_attn_f32_plan({kind}, {dp}): cudaError {rc}")
+        regs = [v for k, v in ptxas.items() if m.group(0) in k]
+        report[f"{label} DP {dp}"] = dict(
+            hgmma=count, dynamic_smem=smem.value, slots=slots.value,
+            blocks_per_sm=blocks.value,
+            registers=regs[0][0] if regs else "not measured",
+            spill_store_bytes=regs[0][1] if regs else "not measured",
+            spill_load_bytes=regs[0][2] if regs else "not measured")
+    if len(report) != 12 or any(r["hgmma"] == 0 for r in report.values()):
+        raise AssertionError(f"K1 float32 kernels without HGMMA in their SASS: {report}")
+    return report
+
+
+def sdpa_kernels_child(shapes):
+    """{label: {"forward": names, "backward": names}}: the kernels SDPA
+    launches at each of `shapes` ({label: (b, sq, sk, h, d, dtype name)}),
+    by torch.profiler, without their argument lists. Run in a fresh process
+    (`--sdpa-kernels`): in the long-lived script process the profiler
+    returned no kernel records for these short windows after the earlier
+    phases, though it did in a fresh one and for the train step later."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    for label, (b, sq, sk, h, d, dname) in shapes.items():
+        dtype = getattr(torch, dname)
+        xs = [torch.randn(b, h, s, d, generator=g, device=dev).to(dtype).requires_grad_()
+              for s in (sq, sk, sk)]
+        do = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+        o = F.scaled_dot_product_attention(*xs)
+        fns = {"forward": lambda: F.scaled_dot_product_attention(*xs),
+               "backward": lambda: torch.autograd.grad(o, xs, do, retain_graph=True)}
+        out[label] = {}
+        for way, fn in fns.items():
+            fn()  # warm
+            torch.cuda.synchronize()
+            out[label][way] = sorted({n.split("(")[0] for n in profile_window(fn)[3]})
+    return out
+
+
 def flash_f32_phase(dev, shapes):
     """K1's float32 route (one forward launch and one backward call each)
-    against the float32 plain versions: out, lse, dQ, dK and dV within
-    F32_TOL of each tensor's largest entry, at each of `shapes` ({label: (b,
-    sq, sk, h, d)}); the forward and the backward timed beside the plain
-    versions and SDPA in float32."""
+    against the float32 plain versions, at each of `shapes` ({label: (b, sq,
+    sk, h, d, dtype)}): float32 rows hold out, lse, dQ, dK and dV within
+    F32_TOL of each tensor's largest entry; a bf16 row (the route upcasts
+    bf16 at a head dim other than 64) holds the bf16 rule: out within
+    FLASH_TOL, lse within 1e-3, each gradient within twice SDPA's bf16
+    backward error plus FLASH_BWD_FLOOR. The forward and the backward timed
+    beside the plain versions and SDPA in the same dtype, whose kernels
+    torch.profiler names; the bound at 165 TFLOP/s (3xTF32) for float32,
+    989 for bf16 (bf16 products are what the function needs)."""
     import torch.nn.functional as F
 
     from vicasplat_tpu_torch.kernels.flash_attn import (
@@ -886,66 +979,123 @@ def flash_f32_phase(dev, shapes):
     )
 
     rows = {}
-    g = torch.Generator(device=dev).manual_seed(8)
-    for label, (b, sq, sk, h, d) in shapes.items():
-        t0 = time.perf_counter()
-        q, do = (torch.randn(b, sq, h, d, generator=g, device=dev) for _ in range(2))
-        k, v = (torch.randn(b, sk, h, d, generator=g, device=dev) for _ in range(2))
-        o, lse = _forward(q, k, v, with_lse=True)
-        got = flash_attention_backward(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = attention_reference(q, k, v), attention_lse_reference(q, k)
+    names = {label: (*shape[:5], str(shape[5]).removeprefix("torch."))
+             for label, shape in shapes.items()}
+    child = subprocess.Popen([sys.executable, str(pathlib.Path(__file__).resolve()),
+                              "--sdpa-kernels", json.dumps(names)],
+                             stdout=subprocess.PIPE, text=True)
+    try:
+        g = torch.Generator(device=dev).manual_seed(8)
+        for label, (b, sq, sk, h, d, dtype) in shapes.items():
+            t0 = time.perf_counter()
+            f32 = dtype == torch.float32
+            q, do = (torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            o, lse = _forward(q, k, v, with_lse=True)
+            got = flash_attention_backward(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = attention_reference(q, k, v), attention_lse_reference(q, k)
 
-        def plain_bwd():
-            return attention_backward_reference(q, k, v, o_ref, lse_ref, do)
+            def plain_bwd():
+                return attention_backward_reference(q, k, v, o_ref, lse_ref, do)
 
-        errs = {"out": rel_err(o, o_ref), "lse": rel_err(lse, lse_ref)}
-        errs.update({n: rel_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), got,
-                                                          plain_bwd())})
-        bad = [n for n, e in errs.items() if not e < F32_TOL]
-        if bad:
-            raise AssertionError(f"K1 float32 {label}: {bad} exceed {F32_TOL}: {errs}")
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        xs = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-        out_lib = F.scaled_dot_product_attention(*xs)
-        do_t = do.transpose(1, 2)
-        fwd_ms = cuda_ms(lambda: _forward(q, k, v, with_lse=False))
-        bwd_ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, lse, do))
-        shape = f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {sk}, {h}, {d}) float32"
-        fwd_flops, bwd_flops = 4.0 * b * h * sq * sk * d, 10.0 * b * h * sq * sk * d
-        fwd = dict(shape=shape, max_abs_err=(o - o_ref).abs().max().item(),
-                   errors=errs, ms=fwd_ms,
-                   plain_ms=cuda_ms(lambda: attention_reference(q, k, v), iters=5),
-                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-                   device_ms=queued_ms(lambda: _forward(q, k, v, False)),
-                   library_device_ms=queued_ms(
-                       lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-                   tflops=fwd_flops / fwd_ms * 1e-9)
-        fwd["bound_ms"], fwd["bound_by"] = bound(
-            fwd_flops, H100_F32_FLOPS, 4.0 * d * h * b * (2 * sq + 2 * sk))
-        bwd = dict(shape=shape, max_abs_err=max((a - r).abs().max().item() for a, r
-                                                in zip(got, plain_bwd())),
-                   errors=errs, ms=bwd_ms, plain_ms=cuda_ms(plain_bwd, iters=5),
-                   library_ms=cuda_ms(lambda: torch.autograd.grad(
-                       out_lib, xs, do_t, retain_graph=True)),
-                   device_ms=queued_ms(
-                       lambda: flash_attention_backward(q, k, v, o, lse, do)),
-                   library_device_ms=queued_ms(lambda: torch.autograd.grad(
-                       out_lib, xs, do_t, retain_graph=True)),
-                   tflops=bwd_flops / bwd_ms * 1e-9)
-        bwd["bound_ms"], bwd["bound_by"] = bound(
-            bwd_flops, H100_F32_FLOPS, 4.0 * d * h * b * (4 * sq + 4 * sk) + 4.0 * b * h * sq)
-        rows[label] = {"forward": fwd, "backward": bwd}
-        phase("k1-f32", t0, f"{label} {shape}: relative errors " + ", ".join(
-            f"{n} {e:.1e}" for n, e in errs.items()) + f" (tol {F32_TOL}); forward "
-            f"kernel_ms {fwd['ms']:.4f} (device {fwd['device_ms']:.4f}) plain_ms "
-            f"{fwd['plain_ms']:.4f} library_ms {fwd['library_ms']:.4f} (SDPA device "
-            f"{fwd['library_device_ms']:.4f}) bound_ms "
-            f"{fwd['bound_ms']:.4f}; backward kernel_ms {bwd['ms']:.4f} (device "
-            f"{bwd['device_ms']:.4f}) plain_ms {bwd['plain_ms']:.4f} library_ms "
-            f"{bwd['library_ms']:.4f} (SDPA device {bwd['library_device_ms']:.4f}) "
-            f"bound_ms {bwd['bound_ms']:.4f}")
-        del out_lib, xs
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            xs = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+            out_lib = F.scaled_dot_product_attention(*xs)
+            do_t = do.transpose(1, 2)
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(qt, kt, vt)
+
+            def lib_bwd():
+                return torch.autograd.grad(out_lib, xs, do_t, retain_graph=True)
+
+            if f32:
+                errs = {"out": rel_err(o, o_ref), "lse": rel_err(lse, lse_ref)}
+                errs.update({n: rel_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), got,
+                                                                  plain_bwd())})
+                bad = [n for n, e in errs.items() if not e < F32_TOL]
+                rule = f"tol {F32_TOL}"
+            else:
+                bwd_errs = flash_bwd_errors(f"K1 bf16 {label}", got, plain_bwd(), lib_bwd())
+                errs = {"out_abs": (o.float() - o_ref).abs().max().item(),
+                        "lse_abs": (lse - lse_ref).abs().max().item()}
+                errs.update({n: e["rel"] for n, e in bwd_errs.items()})
+                bad = [n for n, lim in (("out_abs", FLASH_TOL), ("lse_abs", 1e-3))
+                       if not errs[n] < lim]
+                rule = (f"out < {FLASH_TOL}, lse < 1e-3, gradients within 2 x SDPA + "
+                        f"{FLASH_BWD_FLOOR}")
+            if bad:
+                raise AssertionError(f"K1 float32 route {label}: {bad} exceed the rule "
+                                     f"({rule}): {errs}")
+            fwd_ms = cuda_ms(lambda: _forward(q, k, v, with_lse=False))
+            bwd_ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, lse, do))
+            dname = str(dtype).removeprefix("torch.")
+            shape = f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {sk}, {h}, {d}) {dname}"
+            fwd_flops, bwd_flops = 4.0 * b * h * sq * sk * d, 10.0 * b * h * sq * sk * d
+            rate = H100_TF32X3_FLOPS if f32 else H100_BF16_FLOPS
+            rate_name = ("165 TFLOP/s (3xTF32)" if f32 else "989 TFLOP/s (bf16)")
+            size = 4.0 if f32 else 2.0
+            fwd = dict(shape=shape, max_abs_err=(o.float() - o_ref).abs().max().item(),
+                       errors=errs, ms=fwd_ms,
+                       plain_ms=cuda_ms(lambda: attention_reference(q, k, v), iters=5),
+                       library_ms=cuda_ms(lib_fwd),
+                       library=f"SDPA {dname}",
+                       device_ms=queued_ms(lambda: _forward(q, k, v, False)),
+                       library_device_ms=queued_ms(lib_fwd), bound_rate=rate_name,
+                       tflops=fwd_flops / fwd_ms * 1e-9)
+            fwd["bound_ms"], fwd["bound_by"] = bound(
+                fwd_flops, rate, size * d * h * b * (2 * sq + 2 * sk))
+            bwd = dict(shape=shape, max_abs_err=max((a.float() - r).abs().max().item()
+                                                    for a, r in zip(got, plain_bwd())),
+                       errors=errs, ms=bwd_ms, plain_ms=cuda_ms(plain_bwd, iters=5),
+                       library_ms=cuda_ms(lib_bwd),
+                       library=f"SDPA {dname} backward (torch.autograd.grad, kept graph)",
+                       device_ms=queued_ms(
+                           lambda: flash_attention_backward(q, k, v, o, lse, do)),
+                       library_device_ms=queued_ms(lib_bwd), bound_rate=rate_name,
+                       tflops=bwd_flops / bwd_ms * 1e-9)
+            bwd["bound_ms"], bwd["bound_by"] = bound(
+                bwd_flops, rate, size * d * h * b * (4 * sq + 4 * sk) + 4.0 * b * h * sq)
+            rows[label] = {"forward": fwd, "backward": bwd, "errors": errs, "rule": rule,
+                           "rate": rate_name, "seconds": time.perf_counter() - t0}
+            del out_lib, xs
+        # each row's line once the child has named SDPA's kernels
+        stdout, _ = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:  # a failed row: stop the child
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise RuntimeError(f"the SDPA kernel-name child exited {child.returncode}")
+    for label, ways in json.loads(stdout.strip().splitlines()[-1]).items():
+        r = rows[label]
+        for way, kernels in ways.items():
+            if not kernels:
+                raise AssertionError(f"torch.profiler named no SDPA kernel: {label} {way}")
+            r[way]["library_kernels"] = kernels
+        fwd, bwd = r["forward"], r["backward"]
+        phase("k1-f32", time.perf_counter() - r.pop("seconds"), f"{label} "
+              f"{fwd['shape']}: errors " + ", ".join(
+                  f"{n} {e:.1e}" for n, e in r.pop("errors").items())
+              + f" ({r.pop('rule')}); forward kernel_ms {fwd['ms']:.4f} (device "
+              f"{fwd['device_ms']:.4f}) plain_ms {fwd['plain_ms']:.4f} library_ms "
+              f"{fwd['library_ms']:.4f} (SDPA {fwd['library_kernels']}, device "
+              f"{fwd['library_device_ms']:.4f}) bound_ms {fwd['bound_ms']:.4f} "
+              f"({fwd['bound_by']}, {r.pop('rate')}); backward kernel_ms {bwd['ms']:.4f} "
+              f"(device {bwd['device_ms']:.4f}) plain_ms {bwd['plain_ms']:.4f} library_ms "
+              f"{bwd['library_ms']:.4f} (SDPA {bwd['library_kernels']}, device "
+              f"{bwd['library_device_ms']:.4f}) bound_ms {bwd['bound_ms']:.4f} "
+              f"({bwd['bound_by']})")
+    t0 = time.perf_counter()
+    rows["kernels"] = f32_kernel_report()
+    phase("k1-f32", t0, "wgmma kernels as built: " + "; ".join(
+        f"{k}: {r['registers']} registers, spills {r['spill_store_bytes']}/"
+        f"{r['spill_load_bytes']} bytes, {r['dynamic_smem']} B shared, {r['slots']} "
+        f"slots, {r['blocks_per_sm']} blocks an SM, {r['hgmma']} HGMMA"
+        for k, r in rows["kernels"].items()))
     return rows
 
 
@@ -4162,11 +4312,14 @@ def main():
         k1_bwd = flash_bwd_phase(dev)
         tiny, (tq, tk, tv) = tiny_phase(dev, reset_counts, counts)
         b, sq, h, d = tq.shape
+        f32 = torch.float32
         k1_f32 = flash_f32_phase(dev, {
-            "tiny decoder": (b, sq, tk.shape[1], h, d),  # the tiny phase's shape
-            "d12 ragged": (2, 200, 137, 12, 12),
-            "d16 ragged": (2, 77, 130, 4, 16),
-            "d64 decoder": (1, 2056, 2064, 12, 64)})
+            "tiny decoder": (b, sq, tk.shape[1], h, d, f32),  # the tiny phase's shape
+            "d12 ragged": (2, 200, 137, 12, 12, f32),
+            "d16 ragged": (2, 77, 130, 4, 16, f32),
+            "d64 decoder": (1, 2056, 2064, 12, 64, f32),
+            # bf16 at a head dim other than 64, upcast to the float32 route
+            "bf16 d96": (1, 2056, 2064, 12, 96, torch.bfloat16)})
         del tq, tk, tv
         train = train_phase(dev, dec_depth, reset_counts, counts)
         exported = export_finish(pending, smi)
@@ -4417,5 +4570,7 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--ddp-child":
         ddp_child(int(sys.argv[2]), sys.argv[3])  # a rank of parallel's world 2
+    elif len(sys.argv) == 3 and sys.argv[1] == "--sdpa-kernels":  # k1-f32's
+        print(json.dumps(sdpa_kernels_child(json.loads(sys.argv[2]))), flush=True)
     else:
         main()

@@ -61,11 +61,12 @@ FLASH_BWD_FLOOR = 2e-3
 # both sum float32 products, in other orders
 LSE_TOL = 1e-3
 # K1's float32 route against the float32 plain versions, relative to each
-# tensor's largest entry: both compute in float32 (2^-24 a rounding) and
-# sum in other orders over up to 333 keys and 128 dims, and the kernel's
-# exp2 is within 2 ulp; 1e-4 leaves two orders of magnitude over the
-# roundings and fails a wrong mask, scale or layout, which move entries
-# by their own size
+# tensor's largest entry: the kernels take each float32 product as three
+# TF32 products (within about 2^-22 of it) and sum in float32 in other
+# orders over up to 333 keys and 128 dims, and their exp2 is within 2 ulp;
+# 1e-4 leaves an order of magnitude over that, fails a single TF32 product
+# (3e-4 to 1e-3, tests/test_torch_flash_f32_split.py) and a wrong mask,
+# scale or layout, which move entries by their own size
 F32_TOL = 1e-4
 # the _tiny_smoke widths in float32 on the card against the CPU, relative
 # to each output's largest entry: float32 on both sides summed in other
@@ -110,13 +111,19 @@ def test_flash_matches_plain(cuda, shape_q, sk):
 
 
 def test_flash_rejects_what_it_cannot_run(cuda):
-    """bf16 at a head dim other than 64 (no configuration of the repo uses
-    one), a non-contiguous tensor and a dtype neither route takes raise;
-    nothing falls back."""
+    """A head dim past 128, a non-contiguous tensor and a dtype neither
+    route takes raise; nothing falls back. bf16 at a head dim other than 64
+    runs the float32 route's kernels."""
     q, k, v = _qkv((1, 64, 2, 64), 64, cuda)
     q32, k32, v32 = _qkv((1, 64, 2, 32), 64, cuda)
+    before = (flash_attention.launches, flash_attention.f32_launches)
+    out = flash_attention(q32, k32, v32)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.f32_launches) == \
+        (before[0], before[1] + 1)
+    assert out.dtype == torch.bfloat16 and out.shape == q32.shape
     with pytest.raises(ValueError):
-        flash_attention(q32, k32, v32)
+        flash_attention(*(torch.cat([x, x, x[..., :2]], -1) for x in (q, k, v)))
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     with pytest.raises(ValueError):
@@ -173,19 +180,24 @@ def _rel(a, ref):
 
 
 @pytest.mark.parametrize(
-    "shape_q,sk",
-    [((2, 12, 4, 12), 15),       # the _tiny_smoke decoder's joint attention
-     ((2, 77, 4, 16), 130),      # heads of its encoder's width, ragged
-     ((2, 200, 3, 12), 137),     # Sq > Sk, both ragged against 32-row tiles
-     ((1, 300, 2, 64), 333),     # the flagship's head dim in float32
-     ((1, 40, 2, 128), 70)],     # the widest head the route takes
+    "shape_q,sk,dtype",
+    [((2, 12, 4, 12), 15, torch.float32),    # the _tiny_smoke decoder's joint attention
+     ((2, 77, 4, 16), 130, torch.float32),   # heads of its encoder's width, ragged
+     ((2, 200, 3, 12), 137, torch.float32),  # Sq > Sk, both ragged against 32-row tiles
+     ((1, 300, 2, 64), 333, torch.float32),  # the flagship's head dim in float32
+     ((1, 40, 2, 128), 70, torch.float32),   # the widest head the route takes
+     # bf16 at head dims other than 64, upcast to the float32 route
+     ((2, 77, 4, 32), 130, torch.bfloat16),
+     ((1, 300, 2, 96), 333, torch.bfloat16)],
 )
-def test_flash_f32_matches_plain(cuda, shape_q, sk):
-    """The float32 route (F3): forward, lse and backward against the float32
-    plain versions, within F32_TOL of each tensor's largest entry."""
-    q, k, v = (x.float() for x in _qkv(shape_q, sk, cuda))
+def test_flash_f32_matches_plain(cuda, shape_q, sk, dtype):
+    """The float32 route (F3, 3xTF32 wgmma): forward, lse and backward
+    against the float32 plain versions, within F32_TOL of each tensor's
+    largest entry in float32; bf16 under the bf16 rules above (FLASH_TOL,
+    LSE_TOL, twice SDPA's bf16 backward error plus FLASH_BWD_FLOOR)."""
+    q, k, v = (x.to(dtype) for x in _qkv(shape_q, sk, cuda))
     g = torch.Generator(device=cuda).manual_seed(9)
-    do = torch.randn(q.shape, generator=g, device=cuda)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
     before = (flash_attention.f32_launches, flash_attention_backward.f32_launches)
     xs = [x.clone().requires_grad_() for x in (q, k, v)]
     out = flash_attention(*xs)
@@ -193,16 +205,31 @@ def test_flash_f32_matches_plain(cuda, shape_q, sk):
     torch.cuda.synchronize()
     assert (flash_attention.f32_launches, flash_attention_backward.f32_launches) \
         == (before[0] + 1, before[1] + 1)
-    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert out.dtype == dtype and out.shape == q.shape
     ref = attention_reference(q, k, v)
-    assert _rel(out, ref) < F32_TOL
     o, lse = _forward(q, k, v, with_lse=True)
-    assert (lse - attention_lse_reference(q, k)).abs().max().item() < F32_TOL
+    lse_err = (lse - attention_lse_reference(q, k)).abs().max().item()
     ref_grads = attention_backward_reference(q, k, v, ref,
                                              attention_lse_reference(q, k), do)
-    for name, a, r in zip("qkv", got, ref_grads):
-        assert a.dtype == torch.float32 and a.shape == r.shape
-        assert _rel(a, r) < F32_TOL, name
+    if dtype == torch.float32:
+        assert _rel(out, ref) < F32_TOL
+        assert lse_err < F32_TOL
+        for name, a, r in zip("qkv", got, ref_grads):
+            assert a.dtype == torch.float32 and a.shape == r.shape
+            assert _rel(a, r) < F32_TOL, name
+        return
+    assert (out.float() - ref).abs().max().item() < FLASH_TOL
+    assert lse_err < LSE_TOL, lse_err
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    ys = [x.clone().requires_grad_() for x in (q, k, v)]
+    lib = torch.autograd.grad(t(F.scaled_dot_product_attention(*(t(y) for y in ys))),
+                              ys, do)
+    for name, a, b, r in zip("qkv", got, lib, ref_grads):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape
+        scale = r.abs().max().item()
+        err = (a.float() - r).abs().max().item() / scale
+        err_lib = (b.float() - r).abs().max().item() / scale
+        assert err <= 2 * err_lib + FLASH_BWD_FLOOR, (name, err, err_lib)
 
 
 def test_tiny_smoke_float32_on_card(cuda):
