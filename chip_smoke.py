@@ -192,11 +192,12 @@ Phases, each printing lines with their seconds:
             index by the index_generator CLI (its band printed, at least one
             scene indexed) extended to 8 context views by extend_index; then
             main.py's train mode of re10k_8view from those chunks at the
-            flagship's widths, 2 steps of batch 2 with 8 context and 12
-            target views (K1 24 forward and 12 backward launches a step,
-            finite losses, the loader's seconds a batch beside the step
-            time), and its test mode on the first indexed scene with the
-            2-step checkpoint in the accelerator configuration, 10 alignment
+            flagship's widths, 1 step of batch 2 with 8 context and 12
+            target views (cut from 2; K1 24 forward and 12
+            backward launches, a finite loss, the loader's seconds a batch
+            beside the step time), and its test mode on the first indexed
+            scene with that step's checkpoint in the accelerator
+            configuration, 10 alignment
             steps: K1 12, K3 1, K2 and K4 once a rendered view, finite PSNR,
             SSIM and ATE, the files written.
   distill   distillation: first two float32 steps, "distill_only" then
@@ -209,8 +210,9 @@ Phases, each printing lines with their seconds:
             route 4 + 4 a step; then main.py's train mode of the distill
             experiment at full width (ViT-L student, the full DUSt3R teacher
             with random weights, batch 24 of 2 context and 4 target frames
-            of 256^2) from re10k's chunks, 3 steps in the phases
-            distill_only, distill and full, the batch split into as few
+            of 256^2) from re10k's chunks, 2 steps in the phases
+            distill_only and distill (cut from 3), the batch
+            split into as few
             micro-batches as fit the card: each step's phase, losses (the
             distillation term in the first two only, finite), K1's launches
             (24 + 12 a micro-batch), milliseconds and peak memory.
@@ -226,13 +228,28 @@ Phases, each printing lines with their seconds:
             pipeline (one stage) and tensor parallelism (their forwards
             within the plain-k1 rule), the DDP and FSDP2 steps of
             synthetic_pose (loss equal, gradient norms within
-            FLASH_BWD_FLOOR); the MoE flagship's train step at batch 2 with
-            12 targets (1 warm-up and 2 timed steps, K1 24 + 12 backward a
-            step; E 4 if E 8 does not fit, printed with its peak); a world-2
+            FLASH_BWD_FLOOR); the flagship's train step (2 x (8 + 12))
+            under SP (make_mesh_sp(1, 1)) and TP (make_mesh_2d(1, 1))
+            against the train phase's step 0 by the same rule, ms and
+            peak; the MoE flagship's train step at batch 2 x (8 + 12) (its
+            optimizer warmed up linearly, so that the first step updates;
+            2 steps, K1 24 + 12 backward a step; E 4 if E 8 does not fit,
+            printed with its peak) and its first step under EP
+            (make_mesh_ep(1, 1)) against it; at world 2, by two child
+            processes (`--route-child`) on cuda:0 over gloo, one step each
+            (gradient and first update) against the world-1 step on the
+            same global batch (see STEP_TOL's comment): the witness steps
+            (synthetic_pose and its MoE variant in float32 under SP, TP and
+            EP, every gradient norm and update held) beside this process's
+            first steps, then the flagship's SP (1 x 2) and TP (1 x 2) steps
+            at batch 1 x (8 + 12) and the MoE flagship's EP (1 x 2) step at
+            batch 2 x (8 + 12), 1 a rank (K1 launches exact on each rank,
+            K1's backward held on the SP step's own inputs (Sq != Sk) under
+            the k1-bwd rule, the loss held, ms and peak a rank); a world-2
             DDP step of synthetic_pose at batch 8 by two child processes
             both on cuda:0 over gloo, against the world-1 step in two
             micro-batches of 4 (and printed against one pass of 8), the
-            replicas equal; beside it the brute-force render oracle against
+            replicas equal; the brute-force render oracle against
             the default and the accelerator render on the CPU test's scene
             and on the render phase's 1,000-splat scene at dup (4, 4), where
             nothing is truncated (both within the CPU test's tolerances; on
@@ -240,7 +257,7 @@ Phases, each printing lines with their seconds:
             rect, as the tiled render does), and on the covering scene (the
             gaps printed); the memory reckoning of
             parallel/memory_proof.py (dp8, fsdp8, pp4xdp2) beside the peak of
-            the world-1 flagship step at batch 1.
+            the world-1 flagship step at batch 1 x (8 + 12).
 Then a JSON line of kernels, the nvidia-smi line, and the result line.
 Float32 convolutions run in full float32 (cudnn.allow_tf32 = False), since
 K3's plain version is the reference.
@@ -404,7 +421,9 @@ RE10K_GAUSSIANS = 65536
 # 1.0 of their rays (the RE10K default band 0.6-0.8 finds no pair)
 RE10K_INDEX = {"min_distance": 20, "max_distance": 120, "min_overlap": 0.85,
                "max_overlap": 0.99, "num_target_views": 3, "seed": 0}
-RE10K_TRAIN_STEPS = 2
+# one train step from the chunks (cut from 2 for the 600 s budget;
+# its checkpoint feeds the test mode)
+RE10K_TRAIN_STEPS = 1
 RE10K_ALIGN_STEPS = 10
 # the port's decode of the converter's files (JPEG at quality 95, 4:2:0)
 # against the rendered frames, in luma (JPEG's Y). Their RGB PSNR is printed:
@@ -425,11 +444,13 @@ DISTILL_SEED = 2026
 # float32 route), the teacher (plain attention, cuDNN float32 convolutions)
 # and the render: relative, beside 1e-6 absolute (the PSNR placeholder is 0)
 DISTILL_TOL = 1e-3
-# the distill experiment at full width from re10k's chunks: 3 steps, one in
-# each phase (train.distill_only_steps=1, train.distill_max_steps=1); its
+# the distill experiment at full width from re10k's chunks: 2 steps, in the
+# phases distill_only and distill (train.distill_only_steps=1,
+# train.distill_max_steps=1; cut from 3 for the 600 s budget: the
+# third, "full", is the flagship step of the train and re10k phases); its
 # batch of 24 from re10k's 4 scenes, whose root is listed 6 times (the
 # loader restarts each pass with the same seed, so a pass must hold 24)
-DISTILL_STEPS = 3
+DISTILL_STEPS = 2
 DISTILL_ROOT_COPIES = 6
 # micro-batches a step (train.accumulate_grad_batches), tried in turn until
 # one fits the card: 1 and 2 ran out of memory at 83.9 GB on an H100 80GB
@@ -449,7 +470,7 @@ DISTILL_HEAD_SCALE = 0.1
 TINY_EXPORT_NET = dict(img_size=32, patch_size=16, enc_embed_dim=64, enc_depth=2,
                        enc_num_heads=4, dec_embed_dim=48, dec_depth=4, dec_num_heads=4,
                        use_intrinsic_embedding=True, temporal_rope_theta=30.0)
-# parallel: the MoE flagship (re10k_8view's widths, MoE decoder MLPs), and
+# parallel: the MoE flagship (re10k_8view's widths, MoE decoder MLPs) and
 # its train step's target views (the train phase's 12)
 MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY = 8, 2, 1.25
 MOE_TARGETS = 12
@@ -462,6 +483,35 @@ DDP_STEP = 100
 # norm within FLASH_BWD_FLOOR (the k1-bwd rule's floor: the render's
 # backward adds by atomics, in another order each run)
 STEP_TOL = 1e-6
+# training under SP, TP and EP. At world 1, step 0 of the flagship (lr 0,
+# gradients only) against the train phase's and the MoE flagship's first
+# step under EP against the MoE train step's, by the rule above. At world 2,
+# two child processes on cuda:0 over gloo, one step each (gradient and
+# first update, from seed 0), against the world-1 step on the same global
+# batch:
+# - the flagship under SP (1 x 2) and TP (1 x 2) at batch ROUTE_BATCH x (8 +
+#   ROUTE_TARGETS) and the MoE flagship under EP (1 x 2) at batch 2 x (8 +
+#   EP_TARGETS), bf16, route_train_config: K1's launches exact on each
+#   rank, its backward held on the SP step's own inputs (Sq != Sk), the
+#   loss within FLASH_BWD_FLOOR (a TP rank rounds its part of each
+#   row-parallel product to bf16 before the sum), the replicas equal. Their
+#   gradient norms' gaps are printed, not held: from random init the
+#   flagship's step is chaotic, even in float32 (its norm-free DPT heads put
+#   half of the Gaussians behind the cameras; a change of 1e-7 of the
+#   weights and images moves its gradient norms by up to 8e-3, K1's 3xTF32
+#   against plain float32 attention by 1e-1: diagnostics/route_posedness.py
+#   on an H100 80GB HBM3 at 700.00 W), and a route that rounds otherwise
+#   lands anywhere in that range;
+# - the routes' arithmetic, held: synthetic_pose (linear heads, bounded
+#   depth: its step is well posed from random init) and the same model
+#   with MoE decoder MLPs (E MOE_EXPERTS, top-2, capacity factor
+#   MOE_CAPACITY), float32, batch DDP_BATCH at step DDP_STEP, under SP, TP
+#   and EP (1 x 2): the loss within STEP_TOL, the gradient norm, every
+#   group's gradient norm, every group's update mass (the sum of |p1 - p0|
+#   over every rank, slices summed) and its signed update sum (relative to
+#   the mass) within FLASH_BWD_FLOOR, the replicas equal
+ROUTE_BATCH, ROUTE_TARGETS = 1, 12
+EP_TARGETS = 12
 # the tiled render against the brute-force oracle on the CPU test's scene:
 # its own tolerances (tests/test_torch_raster_reference.py, after JAX's
 # tests/test_rasterizer.py); the covering scene's oracle in chunks of pixels
@@ -953,7 +1003,13 @@ def sdpa_kernels_child(shapes):
         for way, fn in fns.items():
             fn()  # warm
             torch.cuda.synchronize()
-            out[label][way] = sorted({n.split("(")[0] for n in profile_window(fn)[3]})
+            # a window now and then comes back without kernel records (once
+            # in the bf16 d96 forward): profile up to three
+            for _ in range(3):
+                names = sorted({n.split("(")[0] for n in profile_window(fn)[3]})
+                if names:
+                    break
+            out[label][way] = names
     return out
 
 
@@ -1191,8 +1247,6 @@ def train_run(dev, cfg, B, V, want, reset_counts, counts):
     torch.cuda.OutOfMemoryError when it does not fit."""
     from vicasplat_tpu_torch.kernels import flash_attn
     from vicasplat_tpu_torch.kernels.flash_attn import (
-        attention_backward_reference,
-        attention_lse_reference,
         attention_reference,
         flash_attention_backward,
     )
@@ -1235,6 +1289,8 @@ def train_run(dev, cfg, B, V, want, reset_counts, counts):
         if launches != want:
             raise AssertionError(f"train step {i} launches {launches}, not {want}")
         logs = {k: float(v) for k, v in logs.items()}
+        if i == 0:  # the plain reference of parallel's world-1 SP and TP steps
+            step0 = route_record(model, logs)
         nonfinite = int(step.nonfinite)
         if nonfinite or not all(math.isfinite(v) for v in logs.values()):
             raise AssertionError(f"train step {i}: logs {logs}, {nonfinite} "
@@ -1300,23 +1356,14 @@ def train_run(dev, cfg, B, V, want, reset_counts, counts):
     k1_ms = sum(ms for name, ms in kernels.items() if "flash_" in name)
 
     # K1's backward on step 0's inputs of the last and the first decoder
-    # block, against the float32 plain backward and SDPA's, as in k1-bwd
-    import torch.nn.functional as F
-
-    bwd_errs = {}
+    # block, against the float32 plain backward and SDPA's, as in k1-bwd;
     # the backward runs the blocks in reverse: its first call is block 12
-    for label, (q, k, v, o, lse, do) in (("block 12", seen[0]), ("block 1", seen[-1])):
-        xs = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
-        lib = torch.autograd.grad(F.scaled_dot_product_attention(*xs), xs,
-                                  do.transpose(1, 2))
-        ref_bwd = attention_backward_reference(
-            q, k, v, attention_reference(q, k, v), attention_lse_reference(q, k), do)
-        bwd_errs[label] = flash_bwd_errors(
-            f"K1 backward on the train step's inputs ({label})",
-            flash_attention_backward(q, k, v, o, lse, do), ref_bwd, lib)
-        del xs, lib, ref_bwd
+    bwd_errs = {label: k1_bwd_held(f"K1 backward on the train step's inputs ({label})",
+                                   *inputs)["errors"]
+                for label, inputs in (("block 12", seen[0]), ("block 1", seen[-1]))}
     del seen
-    return dict(k1_bwd_on_step_inputs=bwd_errs, batch=B, targets=V, steps=steps, step_ms=times,
+    return dict(k1_bwd_on_step_inputs=bwd_errs, batch=B, targets=V, steps=steps,
+                step0=step0, step_ms=times,
                 train_step_ms=statistics.median(times), peak_gb=peak_gb,
                 profile_wall_ms=wall, device_ms=dev_ms, top=top, k1_device_ms=k1_ms,
                 k1_share=k1_ms / dev_ms if dev_ms else None,
@@ -2439,17 +2486,10 @@ def train_mode_phase(dev, smi, reset_counts, counts, zero):
 
     from vicasplat_tpu_torch import main as tmain
     from vicasplat_tpu_torch.kernels import flash_attn
-    from vicasplat_tpu_torch.kernels.flash_attn import (
-        attention_backward_reference,
-        attention_lse_reference,
-        attention_reference,
-        flash_attention_backward,
-    )
+    from vicasplat_tpu_torch.kernels.flash_attn import flash_attention_backward
     from vicasplat_tpu_torch.training import make_train_step
     from vicasplat_tpu_torch.utils.checkpointing import is_full_state, restore_train_state
     from vicasplat_tpu_torch.utils.config import parse_cli
-
-    import torch.nn.functional as F
 
     t0 = time.perf_counter()
     n = TRAIN_MODE_STEPS
@@ -2545,15 +2585,10 @@ def train_mode_phase(dev, smi, reset_counts, counts, zero):
         raise AssertionError(f"the train mode and the JAX reference disagree: {bad}")
     # K1's backward on the first step's inputs (blocks 4 to 1), the k1-bwd rule
     bwd = {}
-    for j, (q, k, v, o, lse, do) in enumerate(seen):
-        xs = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
-        lib = torch.autograd.grad(F.scaled_dot_product_attention(*xs), xs,
-                                  do.transpose(1, 2))
-        bwd[f"block {dec_depth - j}"] = flash_bwd_errors(
+    for j, inputs in enumerate(seen):
+        bwd[f"block {dec_depth - j}"] = k1_bwd_held(
             f"K1 backward on the train mode's inputs (block {dec_depth - j})",
-            flash_attention_backward(q, k, v, o, lse, do),
-            attention_backward_reference(q, k, v, attention_reference(q, k, v),
-                                         attention_lse_reference(q, k), do), lib)
+            *inputs)["errors"]
     shape = tuple(seen[0][0].shape)
     del seen
     phase("train-mode", t0, f"K1 backward on step 1's own inputs, q {shape} bf16, "
@@ -3273,7 +3308,7 @@ def re10k_phase(dev, smi, reset_counts, counts, zero):
     secs = {k: v["mean_warm_s"] for k, v in bench.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     phase("re10k", t0, f"[{smi}] test mode, re10k_8view accelerator configuration on "
-          f"{scene} (8 context views, {views[0]} targets, the 2-step checkpoint, "
+          f"{scene} (8 context views, {views[0]} targets, the {RE10K_TRAIN_STEPS}-step checkpoint, "
           f"{RE10K_ALIGN_STEPS} alignment steps): launches {launches}; psnr "
           f"{r['psnr']:.4f} ssim {r['ssim']:.4f} ate {r['ate']:.4f}; seconds "
           + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
@@ -3407,15 +3442,8 @@ def distill_phase(dev, smi, reset_counts, counts, zero):
     import gc
     import shutil
 
-    import torch.nn.functional as F
-
     from vicasplat_tpu_torch.kernels import flash_attn
-    from vicasplat_tpu_torch.kernels.flash_attn import (
-        attention_backward_reference,
-        attention_lse_reference,
-        attention_reference,
-        flash_attention_backward,
-    )
+    from vicasplat_tpu_torch.kernels.flash_attn import flash_attention_backward
     from vicasplat_tpu_torch.models import VicaNetConfig, dust3r
     from vicasplat_tpu_torch.models.dust3r import Dust3RConfig, init_dust3r, make_teacher_fn
     from vicasplat_tpu_torch.utils.ckpt_convert import export_dust3r_state_dict
@@ -3497,10 +3525,10 @@ def distill_phase(dev, smi, reset_counts, counts, zero):
         raise AssertionError("the train mode's teacher is not the checkpoint's")
     steps = tr["steps"]
     phases = [st["phase"] for st in steps]
-    if phases != ["distill_only", "distill", "full"]:
+    if phases != ["distill_only", "distill"]:
         raise AssertionError(f"distill train mode phases {phases}")
     terms = [("distillation" in st, "mse" in st) for st in steps]
-    if terms != [(True, False), (True, True), (False, True)]:
+    if terms != [(True, False), (True, True)]:
         raise AssertionError(f"distill train mode (distillation, mse) logged {terms}")
     for st in steps:
         expect_launches(f"distill train step {st['step']}", st["launches"],
@@ -3524,18 +3552,14 @@ def distill_phase(dev, smi, reset_counts, counts, zero):
     # last q tile of 2 rows), forward and backward, on the first call's inputs
     q, k, v, o, lse, do = seen.pop()
     rec["k1"] = flash_phase(dev, {"distill": [(q, k, v)]})["distill"]
-    xs = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
-    lib = torch.autograd.grad(F.scaled_dot_product_attention(*xs), xs, do.transpose(1, 2))
-    rec["k1_bwd"] = flash_bwd_errors(
-        "K1 backward on the distill step's inputs", flash_attention_backward(q, k, v, o, lse, do),
-        attention_backward_reference(q, k, v, attention_reference(q, k, v),
-                                     attention_lse_reference(q, k), do), lib)
+    rec["k1_bwd"] = k1_bwd_held("K1 backward on the distill step's inputs",
+                                q, k, v, o, lse, do)["errors"]
     phase("distill", t0, f"K1 on the first step's own inputs, {rec['k1']['shape']}: forward "
           f"max abs err {rec['k1']['max_abs_err']:.3e} (tol {FLASH_TOL}); backward relative "
           "errors " + ", ".join(
               f"{nm} {e['rel']:.2e} (tol {2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})"
               for nm, e in rec["k1_bwd"].items()))
-    del q, k, v, o, lse, do, xs, lib
+    del q, k, v, o, lse, do
     shutil.rmtree(out, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3561,6 +3585,19 @@ def moe_flagship_config(E: int, **kw):
         backbone=VicaNetConfig(moe_experts=E, moe_top_k=MOE_TOP_K,
                                moe_capacity_factor=MOE_CAPACITY),
         gaussian_adapter=GaussianAdapterConfig(sh_degree=4), **kw)
+
+
+def route_train_config(model=None):
+    """The flagship's train config (or its MoE flagship's, `model`) for the
+    training routes' steps, with a linear warm-up in place of the cosine
+    schedule's: its first optimizer call has lr 4e-5, not 0, so one step
+    from the init weights both takes the gradient and updates."""
+    from vicasplat_tpu_torch.training.presets import flagship_train_config
+
+    base = flagship_train_config()
+    return dataclasses.replace(
+        base, model=model or base.model,
+        optimizer=dataclasses.replace(base.optimizer, cosine_annealing=False))
 
 
 def forward_gaps(a, ref):
@@ -3589,23 +3626,6 @@ def synthetic_pose_setup(dev):
     train_cfg, model, opt = build_all(cfg, dev)
     batch = flagship_train_batch(dev, DDP_BATCH, 2, size=64, T=4)
     return train_cfg, model, opt, batch
-
-
-def step_record(model, logs, step_fn=None):
-    """A step's loss and gradient norm, each parameter group's gradient norm
-    (grad_group) and parameter checksum (float64 sums)."""
-    from vicasplat_tpu_torch.training.optimizer import local
-
-    norms, sums = {}, {}
-    for name, p in model.named_parameters():
-        key = grad_group(name)
-        g = 0.0 if p.grad is None else float((local(p.grad).double() ** 2).sum())
-        norms[key] = norms.get(key, 0.0) + g
-        sums[key] = sums.get(key, 0.0) + float(local(p.detach()).double().sum())
-    return {"loss": float(logs["loss"]), "grad_norm": float(logs["grad_norm"]),
-            "group_norms": {k: math.sqrt(v) for k, v in norms.items()},
-            "param_sums": sums,
-            "nonfinite": None if step_fn is None else int(step_fn.nonfinite)}
 
 
 def step_gaps(got, ref):
@@ -3651,7 +3671,7 @@ def ddp_child(rank: int, root: str):
         t = time.perf_counter()
         logs = step(mine, DDP_STEP)
         torch.cuda.synchronize()
-        rec = step_record(model, logs, step)
+        rec = route_record(model, logs, step)
         rec.update(ms=(time.perf_counter() - t) * 1e3, launches=launch_counts(),
                    backend=str(dist.get_backend()))
     finally:
@@ -3659,24 +3679,26 @@ def ddp_child(rank: int, root: str):
     pathlib.Path(root, f"rank{rank}.json").write_text(json.dumps(rec))
 
 
-def start_ddp_children(root: pathlib.Path):
-    """The world-2 DDP step's two processes, their output in root/rank<r>.log;
-    one intra-op thread each, beside the parent's work."""
+def start_children(root: pathlib.Path, flag: str):
+    """A world-2 group's two processes (`chip_smoke.py <flag> RANK root`:
+    --ddp-child or --route-child), their output in root/rank<r>.log; one
+    intra-op thread each, beside the parent's work."""
     root.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     procs = []
     for r in range(2):
         with open(root / f"rank{r}.log", "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-child", str(r),
-                 str(root)], cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+                [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r), str(root)],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
     return procs
 
 
-def finish_ddp_children(procs, root: pathlib.Path, timeout: float = 400) -> list:
+def finish_children(procs, root: pathlib.Path, timeout: float = 400) -> list:
     for r, p in enumerate(procs):
         if p.wait(timeout=timeout) != 0:
-            raise AssertionError(f"DDP rank {r} exited {p.returncode}:\n"
+            raise AssertionError(f"{root.name} rank {r} exited {p.returncode}:\n"
                                  + (root / f"rank{r}.log").read_text()[-4000:])
     return [json.loads((root / f"rank{r}.json").read_text()) for r in range(2)]
 
@@ -3794,10 +3816,352 @@ def oracle_gaps(dev, smi):
     return rec
 
 
+def route_record(model, logs, step_fn=None, before=None):
+    """A step's loss and gradient norm, each parameter group's (grad_group)
+    gradient norm and parameter checksum (float64 sums), whole on every
+    rank: the squares and sums of the parameters that parallel/tp.py or
+    ep.py sliced (marked by a GradSplit) are summed over the mark's `norm`
+    group. `before` ({name: host copy}) adds each group's update mass (the
+    sum of |p - before|) and signed update sum. `replica_sums` holds the
+    unsliced leaves' sums alone (equal on every rank)."""
+    import torch.distributed as dist
+
+    from vicasplat_tpu_torch.training.optimizer import local
+
+    group = None
+    acc = {}  # group -> [unsliced, sliced] x (sq, sum, mass, signed)
+    for name, p in model.named_parameters():
+        mark = getattr(p, "_grad_split", None)
+        group = mark.norm if mark is not None else group
+        a = acc.setdefault(grad_group(name), [[0.0] * 4, [0.0] * 4])[mark is not None]
+        w = local(p.detach()).double()
+        if p.grad is not None:
+            a[0] += float((local(p.grad).double() ** 2).sum())
+        a[1] += float(w.sum())
+        if before is not None:
+            d = w - before[name].to(p.device).double()
+            a[2] += float(d.abs().sum())
+            a[3] += float(d.sum())
+    keys = list(acc)
+    tot = torch.tensor([acc[k][1] for k in keys], dtype=torch.float64)
+    if group is not None and dist.get_world_size(group) > 1:
+        dist.all_reduce(tot, group=group)  # gloo: host tensors
+    tot = tot.tolist()
+    rec = {"loss": float(logs["loss"]), "grad_norm": float(logs["grad_norm"]),
+           "group_norms": {k: math.sqrt(acc[k][0][0] + t[0]) for k, t in zip(keys, tot)},
+           "param_sums": {k: acc[k][0][1] + t[1] for k, t in zip(keys, tot)},
+           "replica_sums": {k: acc[k][0][1] for k in keys},
+           "nonfinite": None if step_fn is None else int(step_fn.nonfinite)}
+    if before is not None:
+        rec["update_mass"] = {k: acc[k][0][2] + t[2] for k, t in zip(keys, tot)}
+        rec["update_sum"] = {k: acc[k][0][3] + t[3] for k, t in zip(keys, tot)}
+    return rec
+
+
+def host_copy(model) -> dict:
+    return {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+
+
+def route_gaps(got, ref):
+    """Relative gaps of the loss, the gradient norm and each group's
+    gradient norm; with updates, each group's update mass and the largest
+    signed-sum gap relative to the mass."""
+    def rel(a, r):
+        return abs(a - r) / abs(r) if r else abs(a)
+
+    gaps = {"loss": rel(got["loss"], ref["loss"]),
+            "grad_norm": rel(got["grad_norm"], ref["grad_norm"]),
+            **{f"norm {k}": rel(got["group_norms"][k], v)
+               for k, v in ref["group_norms"].items()}}
+    if "update_mass" in ref:
+        gaps.update({f"mass {k}": rel(got["update_mass"][k], v)
+                     for k, v in ref["update_mass"].items()})
+        gaps["signed"] = max((abs(got["update_sum"][k] - v) / ref["update_mass"][k]
+                              for k, v in ref["update_sum"].items() if ref["update_mass"][k]),
+                             default=0.0)
+    return gaps
+
+
+def route_steps(dev, cfg, batch, model, step_fn, reset_counts, counts, want,
+                spy_k1=False, label="", steps=(0,), updates=False):
+    """Train steps at the global step indices `steps` on `batch`: each one's route_record (with its update when `updates`), host
+    ms and launches, held exactly to `want`; with spy_k1, the first K1
+    backward call's inputs. Returns the records, the peak allocated GB and
+    those inputs."""
+    from vicasplat_tpu_torch.kernels import flash_attn
+    from vicasplat_tpu_torch.kernels.flash_attn import flash_attention_backward
+
+    seen = []
+
+    def spy(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        if not seen:
+            seen.append((q, k, v, o, lse, do))
+        return flash_attention_backward(q, k, v, o, lse, do)
+
+    recs = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in steps:
+        before = host_copy(model) if updates else None
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if spy_k1 and not recs:
+            with mock.patch.object(flash_attn._FlashAttention, "backward",
+                                   staticmethod(spy)):
+                logs = step_fn(batch, i)
+        else:
+            logs = step_fn(batch, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = counts()
+        if launches != want:
+            raise AssertionError(f"{label} step {i} launches {launches}, not {want}")
+        rec = route_record(model, logs, step_fn, before)
+        if rec["nonfinite"] or not all(math.isfinite(v) for v in (rec["loss"],
+                                                                  rec["grad_norm"])):
+            raise AssertionError(f"{label} step {i}: {rec}")
+        rec.update(ms=ms, launches=launches, step=i)
+        recs.append(rec)
+        del before
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return recs, peak, seen
+
+
+def k1_bwd_held(what, q, k, v, o, lse, do):
+    """K1's backward on a step's own inputs against the float32 plain
+    backward, beside SDPA's (the k1-bwd rule)."""
+    import torch.nn.functional as F
+
+    from vicasplat_tpu_torch.kernels.flash_attn import (
+        attention_backward_reference,
+        attention_lse_reference,
+        attention_reference,
+        flash_attention_backward,
+    )
+
+    xs = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    lib = torch.autograd.grad(F.scaled_dot_product_attention(*xs), xs, do.transpose(1, 2))
+    ref = attention_backward_reference(q, k, v, attention_reference(q, k, v),
+                                       attention_lse_reference(q, k), do)
+    errs = flash_bwd_errors(what, flash_attention_backward(q, k, v, o, lse, do), ref, lib)
+    return dict(shape=f"q {tuple(q.shape)}, k/v {tuple(k.shape)} {str(q.dtype)[6:]}",
+                errors=errs)
+
+
+# the world-2 training routes' jobs: the witness (light, at once, beside
+# this process's steps), then the flagship's once this process's steps that
+# need most of the card are done (root/go; EP's once this process's work
+# beside SP and TP is done: root/go_ep); "ref" names the world-1 step each
+# is held against
+WITNESS_JOBS = ({"name": "sp witness", "model": "pose", "route": "sp", "ref": "pose"},
+                {"name": "tp witness", "model": "pose", "route": "tp", "ref": "pose"},
+                {"name": "ep witness", "model": "pose_moe", "route": "ep",
+                 "ref": "pose_moe"})
+
+
+def flagship_jobs(E: int) -> list:
+    return [{"name": "sp", "model": "flagship", "route": "sp", "ref": "flagship",
+             "B": ROUTE_BATCH, "V": ROUTE_TARGETS},
+            {"name": "tp", "model": "flagship", "route": "tp", "ref": "flagship",
+             "B": ROUTE_BATCH, "V": ROUTE_TARGETS},
+            {"name": "ep", "model": "moe", "route": "ep", "ref": "moe", "B": 2,
+             "V": EP_TARGETS, "E": E, "after": "go_ep"}]
+
+
+def route_setup(job: dict, dev, world2: bool):
+    """A training route's job: (train config, model from seed 0, batch, the
+    step's keyword arguments, K1 launches a step), for step 0 of
+    route_train_config: "flagship" and "moe" (with job["E"] experts) at
+    batch job["B"] x (8 + job["V"]) in bf16; "pose" and "pose_moe"
+    (synthetic_pose's TrainConfig and batch of DDP_BATCH, its decoder MLPs
+    MoE) in float32, with the same linear warm-up. At world 2 the model is
+    sliced for the job's route on its (1 x 2) mesh and the batch is this
+    rank's slice."""
+    from vicasplat_tpu_torch import parallel as par
+    from vicasplat_tpu_torch.models import init_vicasplat
+    from vicasplat_tpu_torch.training.presets import flagship_train_batch
+
+    if job["model"] in ("flagship", "moe"):
+        base = route_train_config()
+        cfg = base if job["model"] == "flagship" else route_train_config(
+            moe_flagship_config(job["E"], pts3d_bounds=base.model.pts3d_bounds))
+        batch = flagship_train_batch(dev, job["B"], job["V"])
+    else:
+        cfg, _, _, batch = synthetic_pose_setup(dev)
+        cfg = dataclasses.replace(cfg, dtype="float32", optimizer=dataclasses.replace(
+            cfg.optimizer, cosine_annealing=False, warm_up_steps=1))
+        if job["model"] == "pose_moe":
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, backbone=dataclasses.replace(
+                    cfg.model.backbone, moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K,
+                    moe_capacity_factor=MOE_CAPACITY)))
+    model = init_vicasplat(cfg.model, torch.Generator(device=dev).manual_seed(0), dev)
+    kw = {}
+    if world2:
+        if job["route"] == "sp":
+            mesh = kw["sp_mesh"] = par.make_mesh_sp(1, 2)
+        elif job["route"] == "tp":
+            mesh = par.make_mesh_2d(1, 2)
+            par.shard_params_tp(mesh, model)
+        else:
+            mesh = par.make_mesh_ep(1, 2)
+            par.shard_params_ep(mesh, model)
+        batch = par.shard_batch(mesh, batch, ("data", "expert") if job["route"] == "ep"
+                                else "data")
+    d = cfg.model.backbone.dec_depth  # remat replays each forward
+    k1 = ("flash_attn", "flash_attn_bwd") if cfg.dtype == "bfloat16" else (
+        "flash_attn_f32", "flash_attn_f32_bwd")
+    return cfg, model, batch, kw, {k1[0]: (1 + cfg.remat) * d, k1[1]: d}
+
+
+def route_run(job: dict, dev, reset_counts, counts, zero, world2: bool) -> dict:
+    """One step of a job (route_setup) with its update: route_steps' record,
+    peak GB, wall s and the parameters a rank; K1's backward held on the
+    world-2 SP flagship step's own inputs."""
+    from vicasplat_tpu_torch.training import AdamW, make_train_step
+
+    t0 = time.perf_counter()
+    cfg, model, batch, kw, k1 = route_setup(job, dev, world2)
+    opt = AdamW(model, cfg.optimizer)
+    step = make_train_step(cfg, model, opt, **kw)
+    spy = world2 and job["name"] == "sp"
+    steps, peak, seen = route_steps(dev, cfg, batch, model, step, reset_counts, counts,
+                                    dict(zero, **k1), spy_k1=spy, label=job["name"],
+                                    updates=True)
+    r = {"step": steps[0], "peak_gb": peak, "wall_s": time.perf_counter() - t0,
+         "params_local": sum(p.numel() for p in model.parameters())}
+    if spy:
+        if not seen:
+            raise AssertionError("the SP step's K1 backward was never called")
+        r["k1_bwd"] = k1_bwd_held("K1 backward on the SP step's inputs", *seen[0])
+    return r
+
+
+def route_child(rank: int, root: str):
+    """One rank of the world-2 training routes, both on cuda:0 over gloo
+    (route_run of each job): WITNESS_JOBS, then the jobs of root/go
+    (written once the parent's steps that need most of the card are done),
+    waiting before a job with "after" for that file. Writes
+    root/rank<r>.json after each job, with the card's free memory before
+    each."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+
+    from vicasplat_tpu_torch.kernels import COUNTERS, build, launch_counts
+
+    torch.backends.cudnn.allow_tf32 = False  # float32 convs in float32, as main()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(root, "store"), 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    for name in KERNELS:
+        build.load(name)
+
+    def reset_counts():
+        for fn, attr in COUNTERS.values():
+            setattr(fn, attr, 0)
+
+    zero = {name: 0 for name in COUNTERS}
+    out = {"backend": str(dist.get_backend()), "free_gb": {}}
+
+    def wait_for(name):
+        path, t_wait = pathlib.Path(root, name), time.perf_counter()
+        while not path.exists():
+            if time.perf_counter() - t_wait > 400:
+                raise TimeoutError(f"no {name} from the parent")
+            time.sleep(0.2)
+        return path.read_text()
+
+    def run(job):
+        if "after" in job:
+            wait_for(job["after"])
+        out["free_gb"][job["name"]] = torch.cuda.mem_get_info()[0] / 1e9
+        out[job["name"]] = route_run(job, dev, reset_counts, launch_counts, zero, True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pathlib.Path(root, f"rank{rank}.json").write_text(json.dumps(out))
+
+    try:
+        for job in WITNESS_JOBS:
+            run(job)
+        for job in json.loads(wait_for("go")):
+            run(job)
+    finally:
+        dist.destroy_process_group()
+
+
+def world2_held(ranks, refs, jobs):
+    """The world-2 jobs' records (one per rank) against their world-1 steps
+    (refs[job["ref"]]): each job's route_gaps, held for the witness jobs
+    (STEP_TOL, FLASH_BWD_FLOOR) and for the flagship's loss alone
+    (FLASH_BWD_FLOOR); the replicated leaves' sums equal on both ranks.
+    Returns a row per job."""
+    out = {"backend": ranks[0]["backend"]}
+    for job in jobs:
+        name, rs = job["name"], [r[job["name"]] for r in ranks]
+        got = [r["step"] for r in rs]
+        gaps = route_gaps(got[0], refs[job["ref"]])
+        held = gaps if job["model"].startswith("pose") else {"loss": gaps["loss"]}
+        tol = {k: STEP_TOL if k == "loss" and job["model"].startswith("pose")
+               else FLASH_BWD_FLOOR for k in held}
+        bad = {k: (v, tol[k]) for k, v in held.items() if not v <= tol[k]}
+        if bad:
+            raise AssertionError(f"world-2 {name} against world 1: {bad}")
+        replicas = max(abs(got[0]["replica_sums"][k] - v)
+                       for k, v in got[1]["replica_sums"].items())
+        if replicas != 0.0:
+            raise AssertionError(f"world-2 {name}: replicas apart by {replicas}")
+        worst = max(held, key=lambda k: held[k] / tol[k])
+        out[name] = {"ms": [g["ms"] for g in got], "peak_gb": [r["peak_gb"] for r in rs],
+                     "launches": got[0]["launches"],
+                     "params_local": [r["params_local"] for r in rs],
+                     "wall_s": [r["wall_s"] for r in rs],
+                     "free_gb_before": [r["free_gb"][name] for r in ranks],
+                     "gaps": gaps, "worst_held": (worst, held[worst], tol[worst]),
+                     "k1_bwd": [r["k1_bwd"] for r in rs] if "k1_bwd" in rs[0] else None}
+    return out
+
+
+def world1_sp_tp(dev, batch, reset_counts, counts, zero):
+    """Step 0 of the flagship on `batch` under SP (make_mesh_sp(1, 1)), then
+    under TP (shard_params_tp on make_mesh_2d(1, 1)), on one model from
+    seed 0 (step 0's lr is 0, so TP starts from the same weights), in this
+    process's world-1 group: {route: (route_record, peak GB)}."""
+    from vicasplat_tpu_torch import parallel as par
+    from vicasplat_tpu_torch.models import init_vicasplat
+    from vicasplat_tpu_torch.training import AdamW, make_train_step
+    from vicasplat_tpu_torch.training.presets import flagship_train_config
+
+    cfg = flagship_train_config()
+    want = dict(zero, flash_attn=2 * cfg.model.backbone.dec_depth,
+                flash_attn_bwd=cfg.model.backbone.dec_depth)
+    model = init_vicasplat(cfg.model, torch.Generator(device=dev).manual_seed(0), dev)
+    out = {}
+    for route in ("sp", "tp"):
+        kw = {}
+        if route == "sp":
+            kw["sp_mesh"] = par.make_mesh_sp(1, 1)
+        else:
+            par.shard_params_tp(par.make_mesh_2d(1, 1), model)
+        step = make_train_step(cfg, model, AdamW(model, cfg.optimizer), **kw)
+        steps, peak, _ = route_steps(dev, cfg, batch, model, step, reset_counts, counts,
+                                     want, label=f"world-1 {route}", steps=(0,))
+        out[route] = (steps[0], peak)
+        del step
+    return out
+
+
 def moe_train(dev, E, reset_counts, counts, zero):
-    """The MoE flagship's training step at batch 2 with MOE_TARGETS target
-    views: 1 warm-up and 2 timed steps, exact launch counts, finite logs;
-    raises torch.cuda.OutOfMemoryError when it does not fit."""
+    """The MoE flagship's training step (route_train_config) at batch 2 with
+    MOE_TARGETS target views from seed 0: steps 0 (gradient and first
+    update: the world-1 reference of the EP steps) and 1 (warm), exact
+    launch counts, finite logs (route_steps); raises
+    torch.cuda.OutOfMemoryError when it does not fit."""
     from vicasplat_tpu_torch.models import init_vicasplat
     from vicasplat_tpu_torch.training import AdamW, make_train_step
     from vicasplat_tpu_torch.training.presets import (
@@ -3806,7 +4170,7 @@ def moe_train(dev, E, reset_counts, counts, zero):
     )
 
     base = flagship_train_config()
-    cfg = dataclasses.replace(base, model=moe_flagship_config(
+    cfg = route_train_config(moe_flagship_config(
         E, **{k: getattr(base.model, k) for k in ("pts3d_bounds",)}))
     dec_depth = cfg.model.backbone.dec_depth
     model = init_vicasplat(cfg.model, torch.Generator(device=dev).manual_seed(0), dev)
@@ -3814,35 +4178,22 @@ def moe_train(dev, E, reset_counts, counts, zero):
     step = make_train_step(cfg, model, AdamW(model, cfg.optimizer))
     batch = flagship_train_batch(dev, 2, MOE_TARGETS)
     want = dict(zero, flash_attn=2 * dec_depth, flash_attn_bwd=dec_depth)
-    torch.cuda.reset_peak_memory_stats()
-    steps = []
-    for i in range(3):
-        reset_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        logs = step(batch, i + 1)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        launches = counts()
-        logs = {k: float(v) for k, v in logs.items()}
-        if launches != want:
-            raise AssertionError(f"MoE train step {i} launches {launches}, not {want}")
-        if int(step.nonfinite) or not all(math.isfinite(v) for v in logs.values()):
-            raise AssertionError(f"MoE train step {i}: logs {logs}, "
-                                 f"{int(step.nonfinite)} non-finite gradient entries")
-        steps.append(dict(ms=ms, logs=logs, launches=launches))
+    steps, _, _ = route_steps(dev, cfg, batch, model, step, reset_counts, counts, want,
+                              label="MoE train", steps=(0, 1), updates=True)
     peak = torch.cuda.max_memory_allocated() / 1e9
     del model, step
     return dict(E=E, params=n_params, steps=steps, step_ms=[s["ms"] for s in steps[1:]],
                 peak_gb=peak)
 
 
-def parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero):
-    """See the module docstring's `parallel`. The world-2 DDP processes are
-    stopped whatever happens."""
+def parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, train):
+    """See the module docstring's `parallel`; `train` is the train phase's
+    record (its step 0 is the plain reference of the world-1 SP and TP
+    steps). The world-2 processes are stopped whatever happens."""
     procs = []
     try:
-        return _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, procs)
+        return _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, train,
+                               procs)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3850,7 +4201,7 @@ def parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero):
                 p.wait()
 
 
-def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, procs):
+def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, train, procs):
     import copy
     import gc
     import shutil
@@ -3868,12 +4219,24 @@ def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, procs):
     from vicasplat_tpu_torch.parallel import memory_proof
     from vicasplat_tpu_torch.parallel.mesh import shard_params_fsdp
     from vicasplat_tpu_torch.training import AdamW, make_train_step
+    from vicasplat_tpu_torch.training.presets import (
+        flagship_train_batch,
+        flagship_train_config,
+    )
 
     rec = {}
     ddp_root = ROOT / "build" / "chip_smoke_ddp"
+    route_root = ROOT / "build" / "chip_smoke_routes"
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
+    # the world-2 processes start first: their start-up, the DDP step and
+    # the training routes' witness steps run beside this process's light
+    # work; the routes' flagship steps wait for root/go
+    shutil.rmtree(ddp_root, ignore_errors=True)
+    procs.extend(start_children(ddp_root, "--ddp-child"))
+    shutil.rmtree(route_root, ignore_errors=True)
+    procs.extend(start_children(route_root, "--route-child"))
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
                             device_id=dev)
     try:
@@ -3949,12 +4312,6 @@ def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, procs):
             raise AssertionError(f"einsum and index dispatch disagree: {gaps}")
         del ein
 
-        # the world-2 DDP step's two processes start here: their start-up
-        # (imports, the card, the model) is host work beside the routes,
-        # the MoE train step and the oracle
-        shutil.rmtree(ddp_root, ignore_errors=True)
-        procs.extend(start_ddp_children(ddp_root))
-
         # ---- every route at world 1 against the call it wraps ----
         routes = {}
         t1 = time.perf_counter()
@@ -4026,7 +4383,7 @@ def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, procs):
         # from the same seeded weights
         train_cfg, m, opt, batch = synthetic_pose_setup(dev)
         step = make_train_step(train_cfg, m, opt)
-        plain = step_record(m, step(batch, DDP_STEP), step)
+        plain = route_record(m, step(batch, DDP_STEP), step)
         for name in ("ddp", "fsdp"):
             del m, opt, step
             gc.collect()
@@ -4036,7 +4393,7 @@ def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, procs):
                 step = make_train_step(train_cfg, m, AdamW(m, train_cfg.optimizer))
             else:
                 step = make_train_step(train_cfg, m, opt, ddp_group=mesh.get_group())
-            routes[name] = step_gaps(step_record(m, step(batch, DDP_STEP), step), plain)
+            routes[name] = step_gaps(route_record(m, step(batch, DDP_STEP), step), plain)
         del m, opt, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -4050,53 +4407,153 @@ def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, procs):
               + f" (forwards: plain-k1 tol {plain_tol}; steps: loss {STEP_TOL}, "
               f"gradient norms {FLASH_BWD_FLOOR})")
         rec["routes"] = routes
+
+        # ---- the SP and TP steps of the flagship at world 1, against the
+        # train phase's step 0 on the same batch and weights ----
+        t1 = time.perf_counter()
+        B, V = train["batch"], train["targets"]
+        w1 = world1_sp_tp(dev, flagship_train_batch(dev, B, V), reset_counts, counts, zero)
+        train_w1 = {}
+        for name, (got, peak) in w1.items():
+            gaps = route_gaps(got, train["step0"])
+            train_w1[name] = dict(gaps=gaps, ms=got["ms"], peak_gb=peak,
+                                  launches=got["launches"])
+        phase("parallel", t1, f"[{smi}] flagship train step at world 1 ({B} x (8 + {V}), "
+              "remat dots, step 0) under SP (make_mesh_sp(1, 1)) and then TP "
+              "(shard_params_tp on make_mesh_2d(1, 1)), one model from seed 0, against "
+              "the train phase's step 0: " + "; ".join(
+                  f"{n} {r['ms']:.1f} ms, peak {r['peak_gb']:.2f} GB, launches "
+                  f"{r['launches']}, gaps loss {r['gaps']['loss']:.2e}, grad_norm "
+                  f"{r['gaps']['grad_norm']:.2e}, worst group "
+                  f"{max(v for k, v in r['gaps'].items() if k.startswith('norm')):.2e}"
+                  for n, r in train_w1.items())
+              + f" (loss {STEP_TOL}, norms {FLASH_BWD_FLOOR})")
+        for name, r in train_w1.items():
+            if not (r["gaps"]["loss"] <= STEP_TOL and max(
+                    v for k, v in r["gaps"].items() if k != "loss") <= FLASH_BWD_FLOOR):
+                raise AssertionError(f"{name} step at world 1 against the plain step: "
+                                     f"{r['gaps']}")
+        del w1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the MoE flagship's train step ----
+        t1 = time.perf_counter()
+        cuts = []
+        for E in (MOE_EXPERTS, 4):
+            try:
+                tr = moe_train(dev, E, reset_counts, counts, zero)
+                break
+            except torch.cuda.OutOfMemoryError:
+                cuts.append(f"E {E}: out of memory, peak "
+                            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+                phase("parallel", t1, "cut: " + cuts[-1])
+                gc.collect()
+                torch.cuda.empty_cache()
+        else:
+            raise AssertionError(f"the MoE train step fits at no E: {cuts}")
+        tr["cuts"] = cuts
+        moe["train"] = tr
+        phase("parallel", t1, f"[{smi}] MoE flagship train step (E {tr['E']}, "
+              f"{tr['params']} parameters), batch 2 x 8 context frames, {MOE_TARGETS} "
+              f"targets of 256^2, remat dots, linear warm-up: step ms "
+              f"{[round(s['ms'], 1) for s in tr['steps']]} (the first cold), launches "
+              f"{tr['steps'][-1]['launches']}, losses "
+              f"{[round(s['loss'], 5) for s in tr['steps']]}, peak allocated "
+              f"{tr['peak_gb']:.2f} GB; cuts {cuts or 'none'}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the EP step of the MoE flagship at world 1 ----
+        t1 = time.perf_counter()
+        base = flagship_train_config()
+        mcfg = route_train_config(moe_flagship_config(
+            tr["E"], pts3d_bounds=base.model.pts3d_bounds))
+        m = init_vicasplat(mcfg.model, torch.Generator(device=dev).manual_seed(0), dev)
+        par.shard_params_ep(par.make_mesh_ep(1, 1), m)
+        step = make_train_step(mcfg, m, AdamW(m, mcfg.optimizer))
+        want = dict(zero, flash_attn=2 * mcfg.model.backbone.dec_depth,
+                    flash_attn_bwd=mcfg.model.backbone.dec_depth)
+        ep_steps, ep_peak, _ = route_steps(dev, mcfg, flagship_train_batch(dev, 2, MOE_TARGETS),
+                                           m, step, reset_counts, counts, want,
+                                           label="world-1 EP", updates=True)
+        del m, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        gaps = route_gaps(ep_steps[0], tr["steps"][0])
+        train_w1["ep"] = dict(gaps=gaps, ms=ep_steps[0]["ms"], peak_gb=ep_peak,
+                              launches=ep_steps[0]["launches"])
+        phase("parallel", t1, f"[{smi}] MoE flagship train step at world 1 under EP "
+              f"(shard_params_ep on make_mesh_ep(1, 1), its first step) against the "
+              f"MoE train step's: {ep_steps[0]['ms']:.1f} ms, peak {ep_peak:.2f} GB, launches "
+              f"{ep_steps[0]['launches']}; gaps " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in gaps.items())
+              + f" (loss {STEP_TOL}, norms and updates {FLASH_BWD_FLOOR})")
+        if not (gaps["loss"] <= STEP_TOL and max(
+                v for k, v in gaps.items() if k != "loss") <= FLASH_BWD_FLOOR):
+            raise AssertionError(f"EP step at world 1 against the plain step: {gaps}")
+        rec["train_routes_world1"] = train_w1
     finally:
         dist.destroy_process_group()
 
-    # ---- the MoE flagship's train step ----
+    # ---- the world-1 references of the flagship's world-2 steps ----
     t1 = time.perf_counter()
-    cuts = []
-    for E in (MOE_EXPERTS, 4):
-        try:
-            tr = moe_train(dev, E, reset_counts, counts, zero)
-            break
-        except torch.cuda.OutOfMemoryError:
-            cuts.append(f"E {E}: out of memory, peak "
-                        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-            phase("parallel", t1, "cut: " + cuts[-1])
-            gc.collect()
-            torch.cuda.empty_cache()
-    else:
-        raise AssertionError(f"the MoE train step fits at no E: {cuts}")
-    tr["cuts"] = cuts
-    moe["train"] = tr
-    phase("parallel", t1, f"[{smi}] MoE flagship train step (E {tr['E']}, "
-          f"{tr['params']} parameters), batch 2 x 8 context frames, {MOE_TARGETS} targets "
-          f"of 256^2, remat dots: step ms {[round(s['ms'], 1) for s in tr['steps']]} "
-          f"(first a warm-up), launches {tr['steps'][-1]['launches']}, loss "
-          f"{tr['steps'][-1]['logs']['loss']:.5f}, peak allocated {tr['peak_gb']:.2f} GB; "
-          f"cuts {cuts or 'none'}")
+    jobs = flagship_jobs(tr["E"])
+    w1_flagship = route_run(dict(jobs[0], name="world-1 flagship"), dev, reset_counts,
+                            counts, zero, False)
+    refs = {"flagship": w1_flagship["step"],
+            "moe": (tr["steps"][0] if EP_TARGETS == MOE_TARGETS else
+                    route_run(dict(jobs[2], name="world-1 moe"), dev, reset_counts,
+                              counts, zero, False)["step"])}
     gc.collect()
     torch.cuda.empty_cache()
+    free_go = torch.cuda.mem_get_info()[0] / 1e9
+    (route_root / "go").write_text(json.dumps(jobs))
+    t_go = time.perf_counter()
 
-    # ---- a world-2 DDP step on the one card, beside the oracle ----
-    t1 = time.perf_counter()
-    rec["oracle"] = oracle_gaps(dev, smi)
-    refs = {}
+    # ---- beside the world-2 SP and TP steps: the world-1 references of the
+    # witness and of the world-2 DDP step, and the render oracle ----
+    refs.update((name, route_run({"model": name, "name": f"world-1 {name}"}, dev,
+                                 reset_counts, counts, zero, False)["step"])
+                for name in ("pose", "pose_moe"))
+    ddp_refs = {}
     for A in (2, 1):  # each rank's half as one micro-batch; the whole batch
         train_cfg, m, opt, batch = synthetic_pose_setup(dev)
         step = make_train_step(dataclasses.replace(train_cfg, accumulate_steps=A),
                                m, opt)
-        refs[A] = step_record(m, step(batch, DDP_STEP), step)
+        ddp_refs[A] = route_record(m, step(batch, DDP_STEP), step)
         del m, opt, step
         gc.collect()
-    ranks = finish_ddp_children(procs, ddp_root)
+    rec["oracle"] = oracle_gaps(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (route_root / "go_ep").write_text("")
+
+    # ---- the memory reckoning beside the measured peak: the reference's
+    # step (batch ROUTE_BATCH, 8 + ROUTE_TARGETS) ----
+    peak = w1_flagship["peak_gb"] * 1e9
+    measured = {"batch": ROUTE_BATCH, "ctx": 8, "tgt": ROUTE_TARGETS, "image": 256,
+                "peak_bytes": peak, "peak_gib": peak / 1024**3,
+                "step_ms": [w1_flagship["step"]["ms"]]}
+    report = memory_proof.flagship_memory_proof(measured=measured)
+    rows = report["configs"]
+    phase("parallel", t1, f"[{smi}] memory: state a rank reckoned (parameters, gradients, "
+          "AdamW) " + ", ".join(f"{k} {v['state_gib']:.2f} GiB" for k, v in rows.items())
+          + f"; measured world-1 flagship step (batch {ROUTE_BATCH}, 8 + {ROUTE_TARGETS} "
+          f"views, the first) peak {measured['peak_gib']:.2f} GiB, step ms "
+          f"{[round(x, 1) for x in measured['step_ms']]}; card "
+          f"{report['device_bytes'] / 1024**3:.2f} GiB, {free_go:.2f} GB free before the "
+          "world-2 flagship steps")
+
+    # ---- the world-2 DDP step ----
+    t1 = time.perf_counter()
+    ranks = finish_children(procs[:2], ddp_root)
     want = dict(zero, flash_attn=train_cfg.model.backbone.dec_depth,
                 flash_attn_bwd=train_cfg.model.backbone.dec_depth)
     ddp2 = {"ranks": [{k: r[k] for k in ("loss", "grad_norm", "ms", "launches",
                                           "backend", "nonfinite")} for r in ranks],
-            "vs_world1_micro": step_gaps(ranks[0], refs[2]),
-            "vs_world1_whole": step_gaps(ranks[0], refs[1]),
+            "vs_world1_micro": step_gaps(ranks[0], ddp_refs[2]),
+            "vs_world1_whole": step_gaps(ranks[0], ddp_refs[1]),
             "replicas": max(abs(ranks[0]["param_sums"][k] - v)
                             for k, v in ranks[1]["param_sums"].items())}
     g = ddp2["vs_world1_micro"]
@@ -4113,17 +4570,43 @@ def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, procs):
     rec["ddp2"] = ddp2
     shutil.rmtree(ddp_root, ignore_errors=True)
 
-    # ---- the memory reckoning beside the measured peak ----
+    # ---- the world-2 training routes against world 1 ----
     t1 = time.perf_counter()
-    measured = memory_proof.measure_step_peak(dev, batch=1)
-    report = memory_proof.flagship_memory_proof(measured=measured)
-    rows = report["configs"]
-    phase("parallel", t1, f"[{smi}] memory: state a rank reckoned (parameters, gradients, "
-          "AdamW) " + ", ".join(f"{k} {v['state_gib']:.2f} GiB" for k, v in rows.items())
-          + f"; measured world-1 flagship step (batch 1, 8 + 4 views) peak "
-          f"{measured['peak_gib']:.2f} GiB, step ms "
-          f"{[round(x, 1) for x in measured['step_ms']]}; card "
-          f"{report['device_bytes'] / 1024**3:.2f} GiB")
+    ranks = finish_children(procs[2:4], route_root)
+    w2 = world2_held(ranks, refs, list(WITNESS_JOBS) + jobs)
+    rec["train_routes_world2"] = dict(w2, references=refs)
+
+    def row(n):
+        r = w2[n]
+        return (f"{n}: rank ms {[round(x, 1) for x in r['ms']]}, peak "
+                f"{[round(x, 2) for x in r['peak_gb']]} GB, launches {r['launches']}, "
+                f"parameters a rank {r['params_local']}, gaps " + ", ".join(
+                    f"{k} {v:.2e}" for k, v in r["gaps"].items())
+                + f" (worst held against its tolerance {r['worst_held'][0]} "
+                f"{r['worst_held'][1]:.2e} / {r['worst_held'][2]:.0e}), replicas equal")
+
+    phase("parallel", t1, f"[{smi}] world-2 witness steps (synthetic_pose and its MoE "
+          f"variant, E {MOE_EXPERTS}, float32, batch {DDP_BATCH}, 1 x 2 meshes) on cuda:0 "
+          f"over {w2['backend']} against world 1 (loss {STEP_TOL}; norms, update masses "
+          f"and signed sums {FLASH_BWD_FLOOR}): "
+          + "; ".join(row(j["name"]) for j in WITNESS_JOBS))
+    k1b = w2["sp"]["k1_bwd"]
+    phase("parallel", t1, f"[{smi}] world-2 SP, TP (flagship, batch {ROUTE_BATCH} x (8 + "
+          f"{ROUTE_TARGETS})) and EP (MoE flagship E {tr['E']}, batch 2 x (8 + "
+          f"{EP_TARGETS}), 1 a rank) steps, bf16 (gradient and first update, from seed "
+          f"0), on cuda:0 over {w2['backend']} (host ms, first calls; gloo moves CUDA "
+          f"tensors through the host), {time.perf_counter() - t_go:.1f} s from their "
+          f"go, against world 1 (loss {FLASH_BWD_FLOOR}; the norms printed: the "
+          "flagship's step from random init is chaotic, see STEP_TOL's comment): "
+          + "; ".join(row(j["name"]) for j in jobs)
+          + f"; world-1 flagship (batch {ROUTE_BATCH}) ms {refs['flagship']['ms']:.1f}, "
+          f"peak {w1_flagship['peak_gb']:.2f} GB; K1 backward on the SP step's own inputs, "
+          f"{k1b[0]['shape']}: " + "; ".join(
+              f"rank {r} " + ", ".join(f"{nm} {e['rel']:.2e} (tol "
+                                       f"{2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})"
+                                       for nm, e in k["errors"].items())
+              for r, k in enumerate(k1b)))
+    shutil.rmtree(route_root, ignore_errors=True)
     rec["memory"] = report
     rec["moe"] = moe
     phase("parallel", t0, "done")
@@ -4473,7 +4956,7 @@ def main():
     train_mode = train_mode_phase(dev, smi, reset_counts, counts, zero)
     re10k = re10k_phase(dev, smi, reset_counts, counts, zero)
     distill = distill_phase(dev, smi, reset_counts, counts, zero)
-    parallel = parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero)
+    parallel = parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, train)
 
     def entry(name, replaces, r, launches=None, source=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4533,7 +5016,7 @@ def main():
                  # the re10k_8view train step from chunks, and its test mode
                  "re10k_launches": {"train_step": re10k["train"]["steps"][-1]["launches"],
                                     "test": re10k["test"]["launches"]},
-                 # the distill experiment's three steps, one in each phase
+                 # the distill experiment's two steps, distill_only and distill
                  "distill_launches": [st["launches"] for st in distill["train"]["steps"]],
                  # K1 at the distill step's shape, on its own inputs
                  "flash_attn_distill": distill["k1"],
@@ -4570,6 +5053,8 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--ddp-child":
         ddp_child(int(sys.argv[2]), sys.argv[3])  # a rank of parallel's world 2
+    elif len(sys.argv) == 4 and sys.argv[1] == "--route-child":
+        route_child(int(sys.argv[2]), sys.argv[3])  # SP, TP, EP at world 2
     elif len(sys.argv) == 3 and sys.argv[1] == "--sdpa-kernels":  # k1-f32's
         print(json.dumps(sdpa_kernels_child(json.loads(sys.argv[2]))), flush=True)
     else:

@@ -122,6 +122,27 @@ def test_camera_loss_matches_jax(camera_type, trans_dir, with_intrinsics):
                lambda p, e: tl.camera_loss(p, e, cfg=tcfg), pred, ext)
 
 
+@pytest.mark.parametrize("camera_type", ["dq", "qt"])
+def test_camera_loss_at_the_identity_head_matches_jax(camera_type):
+    """A zero-initialised camera head predicts the identity exactly, so
+    against ground truth with identity rotations some entries of pred - gt
+    are 0; JAX's |x| takes the derivative +1 there, and so must the
+    port's L1 (torch's abs takes 0)."""
+    rng = np.random.default_rng(3)
+    ext = np.tile(np.eye(4, dtype=np.float32), (2, 4, 1, 1))
+    ext[:, 1:, :3, 3] = rng.normal(0, 0.5, (2, 3, 3))
+    c = 8 if camera_type == "dq" else 7
+    raw = np.zeros((2, 3, c), np.float32)
+    raw[..., 3] += 1.0  # the decode's +1 on the real quaternion part
+    jcfg = jl.LossCameraConfig(camera_type=camera_type)
+    tcfg = tl.LossCameraConfig(camera_type=camera_type)
+    assert (raw[..., :4] == np.asarray(j_dq_from_Rt(jnp.asarray(ext[:, 1:, :3, :3]),
+                                                   jnp.asarray(ext[:, 1:, :3, 3]))
+                                      )[..., :4]).any()
+    _check(lambda p, e: jl.camera_loss(p, e, cfg=jcfg),
+           lambda p, e: tl.camera_loss(p, e, cfg=tcfg), raw, ext)
+
+
 def test_translation_direction_and_total_match_jax():
     rng = np.random.default_rng(3)
     pred_t = rng.normal(size=(2, 5, 3)).astype(np.float32)

@@ -11,9 +11,12 @@ them. World 2: shard_batch and replicate, DDP against the single-process
 step (with and without accumulation), FSDP2's sharding rule and step, the
 view-sharded render, the GPipe pipeline, EP on a (1, 2) mesh. World 4:
 tensor and sequence parallelism on (2, 2) meshes and EP on a (2, 2)
-data x expert mesh."""
+data x expert mesh. Both: two train steps under SP, TP and EP
+(run_sp_tp_ep_steps) against the single-process step, and the SP step
+against JAX's make_train_step(sp_mesh=...) on virtual CPU devices."""
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +25,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from test_torch_training import _KeepGrads, to_port_config
 from tests import torch_parallel_worker as worker
 from vicasplat_tpu.decoder.splatting import DecoderSplattingConfig as JDecCfg
 from vicasplat_tpu.decoder.splatting import decoder_forward as jdecoder_forward
@@ -29,8 +33,16 @@ from vicasplat_tpu.models import moe as jmoe
 from vicasplat_tpu.models import vicanet as jvn
 from vicasplat_tpu.models.adapter import Gaussians as JGaussians
 from vicasplat_tpu.models.adapter import build_covariance
+from vicasplat_tpu.models import vicasplat as jvs
 from vicasplat_tpu.ops.rasterize import RasterizeConfig as JRasterCfg
-from vicasplat_tpu_torch.utils.weights import state_dict_from_jax
+from vicasplat_tpu.parallel import make_mesh_sp as j_make_mesh_sp
+from vicasplat_tpu.training import TrainConfig as JTrainConfig
+from vicasplat_tpu.training import make_train_step as j_make_train_step
+from vicasplat_tpu.training.optimizer import make_optimizer
+from vicasplat_tpu_torch.models.vicasplat import init_vicasplat
+from vicasplat_tpu_torch.parallel.mesh import GradSplit, mark_split
+from vicasplat_tpu_torch.training import AdamW, make_train_step
+from vicasplat_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
 
 torch.set_num_threads(1)
 
@@ -64,6 +76,24 @@ PARAM_TOL = 2e-3
 # an entry whose gradient is above 1e-4 of its tensor's largest has a
 # well-determined sign: there the parameters agree to rounding
 PARAM_FINE = 1e-6
+# training under SP, TP and EP against the single-process step on the
+# whole batch (tests/torch_parallel_worker.run_sp_tp_ep_steps): the split
+# tokens, heads and experts sum their float32 products in other orders, and
+# every gradient flows through the compositing backward, which
+# tests/test_torch_training.py holds at 1e-3 of the largest entry against
+# JAX for the same reason. Each gradient is held at 1e-3 of its tensor's
+# largest entry, the loss at 1e-6 relative, the gradient norm at 1e-4, each
+# beside twice the reference's own spread: the same single-process steps
+# from context images 1e-7 apart (relative). That spread is at rounding
+# level for the dense model; with routes overflowing the MoE step is
+# ill-conditioned (one pass over batch 4 moves a decoder norm's gradient by
+# 1.2e-2 of its largest entry under that change, with the same routes and
+# seats). Each updated parameter by tests/test_torch_training.py's Adam rule
+# (ROUTE_UPDATE_TOL): an update moves by about lr * mult * (relative
+# disagreement of the entry's gradients, at most 2 (1 + wd)), plus 1e-7
+ROUTE_GRAD_TOL = 1e-3
+ROUTE_NORM_TOL = 1e-4
+ROUTE_UPDATE_TOL = 1e-3
 TINY = dict(img_size=32, patch_size=16, enc_embed_dim=64, enc_depth=2,
             enc_num_heads=4, dec_embed_dim=48, dec_depth=4, dec_num_heads=4,
             use_flash_attention=False)
@@ -74,6 +104,38 @@ def _numpy_tree(shapes, rng, std):
     threefry init is the slow part at any size)."""
     return jax.tree.map(lambda x: rng.normal(0, std, x.shape).astype(np.float32),
                         shapes)
+
+
+def _jax_sp_steps():
+    """JAX's make_train_step(cfg, opt, mesh=m, sp_mesh=m) on a (1, 2) mesh of
+    the CPU's virtual devices, jitted, on the worker's SP batch: step 0
+    from the port's init (seed 0), step 1 from the port's single-process
+    parameters after step 0, as the worker's SP step 1 starts (the
+    optimizer keeps its own moments). Each step's loss, gradient norm,
+    gradients and parameters under the port's names."""
+    cfg = worker.TINY_TRAIN
+    jcfg = to_port_config(JTrainConfig, dataclasses.asdict(cfg))
+    template = jax.eval_shape(lambda k: jvs.init_vicasplat(k, jcfg.model),
+                              jax.random.PRNGKey(0))
+    model = init_vicasplat(cfg.model, torch.Generator().manual_seed(0), "cpu")
+    # a copy: the bridge's arrays share the parameters' memory
+    params = jax_tree_from_state_dict({k: v.clone() for k, v in model.state_dict().items()},
+                                      template)
+    batch = worker.train_batch(2)
+    make_train_step(cfg, model, AdamW(model, cfg.optimizer))(batch, 0)
+    start = jax_tree_from_state_dict(model.state_dict(), template)
+    mesh = j_make_mesh_sp(1, 2)
+    opt = _KeepGrads(make_optimizer(params, jcfg.optimizer))
+    state = opt.init(params)
+    step = jax.jit(j_make_train_step(jcfg, opt, mesh=mesh, sp_mesh=mesh))
+    jbatch = jax.tree.map(lambda x: jnp.asarray(x.numpy()), batch)
+    steps = []
+    for i in range(2):
+        params, state, logs = step(start if i else params, state, jbatch, i)
+        steps.append({"loss": float(logs["loss"]), "grad_norm": float(logs["grad_norm"]),
+                      "params": {k: v.numpy() for k, v in state_dict_from_jax(params).items()},
+                      "grads": {k: v.numpy() for k, v in state_dict_from_jax(state[1]).items()}})
+    return steps
 
 
 def _inputs():
@@ -115,6 +177,9 @@ def _inputs():
                   tile_group=16)
 
     def references():
+        # the SP train step's compile, the longest, in a thread beside the rest
+        sp_pool = ThreadPoolExecutor(1)
+        sp_step = sp_pool.submit(_jax_sp_steps)
         net = jvn.vicanet_forward(params, jcfg, jnp.asarray(images), jnp.asarray(K),
                                   dtype=jnp.float32)
         moe = jmoe.moe_mlp(moe_p, jnp.asarray(moe_x), top_k=2,
@@ -126,7 +191,8 @@ def _inputs():
                             scales=None, rotations=None)
             view[inv] = [np.asarray(x) for x in jdecoder_forward(
                 cfg, jg, *map(jnp.asarray, cams), (32, 32))]
-        return {"net": net, "moe": moe, "view": view}
+        sp_pool.shutdown()
+        return {"net": net, "moe": moe, "view": view, "sp_step": sp_step.result()}
 
     scan_blocks = torch.nn.ModuleList(torch.nn.Linear(6, 6) for _ in range(4))
     torch.manual_seed(0)
@@ -349,3 +415,101 @@ def test_ep_moe_matches_jax(runs, mesh):
         np.testing.assert_allclose(y, y_ref[r * n:(r + 1) * n], atol=MOE_TOL,
                                    rtol=MOE_TOL)
         np.testing.assert_allclose(aux, aux_ref, rtol=MOE_TOL)
+
+
+def _update_held(got, ref, mult, lr, i, optimizer):
+    """Step i's updated parameters against the reference's, by the Adam
+    rule above; the gradients of steps 0..i scaled by their clip factors."""
+    def clipped(steps, name):
+        return [min(1.0, optimizer.gradient_clip_val / s["grad_norm"]) * s["grads"][name]
+                for s in steps[:i + 1]]
+
+    for n, p in ref[i]["params"].items():
+        gt, gr = clipped(got, n), clipped(ref, n)
+        rel = (np.max([np.abs(a - b) for a, b in zip(gt, gr)], axis=0)
+               / (np.max([np.abs(b) for b in gr], axis=0) + 1e-30))
+        tol = lr[i] * mult[n] * (ROUTE_UPDATE_TOL + np.minimum(
+            4 * rel, 2 * (1 + optimizer.weight_decay))) + 1e-7
+        gap = np.abs(got[i]["params"][n] - p)
+        assert (gap <= tol).all(), (i, n, float(gap.max()), int((gap > tol).sum()))
+
+
+def _route_held(r, optimizer):
+    """Both steps of a route (loss, gradient norm, every gradient, every
+    updated parameter) against the single-process step, beside twice its
+    spread."""
+    got, ref, spread = r["got"], r["ref"], r["spread"]
+    for i, (g, f, e) in enumerate(zip(got, ref, spread)):
+        for key, tol in (("loss", LOSS_TOL), ("grad_norm", ROUTE_NORM_TOL)):
+            assert abs(g[key] - f[key]) <= tol * abs(f[key]) + 2 * abs(e[key] - f[key]), \
+                (i, key, g[key], f[key], e[key])
+        assert set(g["grads"]) == set(f["grads"]) and set(g["params"]) == set(f["params"])
+        for n, gr in f["grads"].items():
+            np.testing.assert_allclose(
+                g["grads"][n], gr, rtol=0, err_msg=f"step {i} {n}",
+                atol=ROUTE_GRAD_TOL * np.abs(gr).max() + 2 * np.abs(e["grads"][n] - gr).max()
+                + 1e-12)
+        _update_held(got, ref, r["mult"], r["lr"], i, optimizer)
+
+
+@pytest.mark.parametrize("route", ["sp_1x2", "sp_2x2", "sp_remat_accum", "tp_1x2",
+                                   "tp_remat_accum", "ep_1x2", "ep_2x2"])
+def test_sp_tp_ep_train_step_equals_single_process(runs, route):
+    """make_train_step under sequence parallelism (sp_mesh; (1, 2), (2, 2),
+    and (1, 2) with remat "dots" and 2 micro-batches), on a TP-sharded model
+    ((1, 2), and with remat "dots" and 2 micro-batches: the all-reduces of
+    the checkpointed blocks replayed) and an EP-sharded MoE model (E 4, top-2, routes overflowing;
+    (1, 2), (2, 2)): two steps against the single-process step on the
+    whole batch, TP's and EP's slices gathered whole. Every rank's replicas
+    and gathered shards are equal."""
+    from tests.torch_parallel_worker import MOE_TRAIN
+
+    res, _, _ = runs
+    world = 4 if route.endswith("2x2") else 2
+    _route_held(res[world][0]["steps"][route], MOE_TRAIN.optimizer)
+    sums = [out["route_checksums"][route] for out in res[world]]
+    assert all(s == sums[0] for s in sums[1:])
+    if route.startswith("tp"):
+        assert res[2][0]["tp_step_qkv_rows"] == (72, 48)  # 2 of 4 heads' q, k, v
+    if route.startswith("ep"):
+        assert res[world][0]["ep_step_local_experts"] == (2, 48, 192)
+
+
+def test_sp_train_step_matches_jax(runs):
+    """The port's SP step on a (1, 2) mesh (gloo) against JAX's
+    make_train_step(sp_mesh=...) on a (1, 2) mesh of virtual CPU devices:
+    both steps' loss, gradient norm, gradients and updated parameters, by
+    tests/test_torch_training.py's tolerances (float32 on both sides, the
+    compositing backward summed in other orders)."""
+    from test_torch_training import GRAD_TOL as JAX_GRAD_TOL
+    from test_torch_training import LOSS_TOL as JAX_LOSS_TOL
+
+    res, _, refs = runs
+    r = res[2][0]["steps"]["sp_1x2"]
+    want = refs["sp_step"]
+    for i, (g, j) in enumerate(zip(r["got"], want)):
+        np.testing.assert_allclose(g["loss"], j["loss"], rtol=JAX_LOSS_TOL)
+        np.testing.assert_allclose(g["grad_norm"], j["grad_norm"], rtol=JAX_GRAD_TOL)
+        assert set(g["grads"]) == set(j["grads"])
+        for n, gj in j["grads"].items():
+            np.testing.assert_allclose(g["grads"][n], gj, rtol=0,
+                                       atol=JAX_GRAD_TOL * np.abs(gj).max() + 1e-12,
+                                       err_msg=f"step {i} {n}")
+        _update_held(r["got"], want, r["mult"], r["lr"], i, worker.TINY_TRAIN.optimizer)
+
+
+def test_sp_tp_ep_train_alone():
+    """make_train_step refuses sequence, tensor or expert parallelism beside
+    another route (JAX's forward takes one mesh), before any collective."""
+    cfg = worker.TINY_TRAIN
+    model = init_vicasplat(cfg.model, torch.Generator().manual_seed(0), "cpu")
+    opt = AdamW(model, cfg.optimizer)
+    with pytest.raises(ValueError, match="train alone"):
+        make_train_step(cfg, model, opt, sp_mesh=object(), ddp_group=object())
+    tp = GradSplit(reduce=None, divisor=1, norm=None, mesh=None, mesh_size=1)
+    mark_split([model.backbone.dec_blocks[0].attn.qkv.weight], tp)
+    with pytest.raises(ValueError, match="train alone"):
+        make_train_step(cfg, model, opt, sp_mesh=object())
+    mark_split([model.backbone.dec_blocks[0].mlp.fc1.weight], dataclasses.replace(tp))
+    with pytest.raises(ValueError, match="train alone"):
+        make_train_step(cfg, model, opt)

@@ -18,7 +18,7 @@ from vicasplat_tpu_torch.decoder.splatting import DecoderSplattingConfig
 from vicasplat_tpu_torch.models import moe as tmoe
 from vicasplat_tpu_torch.models.adapter import GaussianAdapterConfig, Gaussians
 from vicasplat_tpu_torch.models.vicanet import VicaNet, VicaNetConfig
-from vicasplat_tpu_torch.models.vicasplat import VicaSplatConfig, init_vicasplat
+from vicasplat_tpu_torch.models.vicasplat import VicaSplat, VicaSplatConfig, init_vicasplat
 from vicasplat_tpu_torch.ops.rasterize import RasterizeConfig
 from vicasplat_tpu_torch.parallel.mesh import fsdp_placement, shard_params_fsdp
 from vicasplat_tpu_torch.training import AdamW, OptimizerConfig, TrainConfig, make_train_step
@@ -58,7 +58,9 @@ def train_batch(B, seed=0, T=2, V=2, size=32):
 
 
 def _np(x):
-    return x.detach().float().cpu().numpy()
+    """A copy (a CPU tensor's .numpy() would share the live parameter's
+    memory)."""
+    return x.detach().float().cpu().numpy().copy()
 
 
 def _full(p):
@@ -278,6 +280,173 @@ def run_tp_sp(inp, out, world, rank):
     out["sp"] = _outs(o)
 
 
+# TINY_TRAIN's decoder MLPs as 4 experts, top-2, capacity factor 0.75:
+# routes overflow, so capacity over the whole call and over one rank's
+# tokens part
+MOE_TRAIN = dataclasses.replace(TINY_TRAIN, model=dataclasses.replace(
+    TINY_TRAIN.model, backbone=dataclasses.replace(
+        TINY_TRAIN.model.backbone, moe_experts=4, moe_top_k=2,
+        moe_capacity_factor=0.75)))
+# SP and TP with both of the step's options at once: remat "dots" (blocks
+# whose forwards gather or all-reduce, replayed in the backward) and 2
+# micro-batches
+REMAT_ACCUM = dataclasses.replace(TINY_TRAIN, remat=True, remat_policy="dots",
+                                  accumulate_steps=2)
+
+
+def _reference(cfg, batch, start=None):
+    """The single-process step on the whole batch, from init seed 0: two
+    steps' results and the model's state after each; step 1 from `start`'s
+    parameters when given."""
+    model = init_vicasplat(cfg.model, torch.Generator().manual_seed(0), "cpu")
+    step = make_train_step(cfg, model, AdamW(model, cfg.optimizer))
+    steps, states = [], []
+    for i in range(2):
+        if i and start is not None:
+            model.load_state_dict(start)
+        steps.append(_step_results(model, step(batch, i)))
+        states.append({k: v.clone() for k, v in model.state_dict().items()})
+    return steps, states
+
+
+def _perturbed(batch, eps=1e-7):
+    """The batch with its context images scaled by 1 + eps."""
+    return {"context": dict(batch["context"], image=batch["context"]["image"] * (1 + eps)),
+            "target": batch["target"]}
+
+
+def _route_steps(cfg, model, batch, ref_state, reshard=None, results=_step_results,
+                 **kw):
+    """Steps 0 and 1 of make_train_step on this rank's `batch`, step 1 from
+    the reference's parameters after step 0 (as tests/test_torch_training.py
+    holds the port to JAX, so that each step's own errors show; the
+    optimizer keeps its own moments). `reshard`: a model sharded as this
+    one, from a state dict of the whole model."""
+    opt = AdamW(model, cfg.optimizer)
+    step = make_train_step(cfg, model, opt, **kw)
+    steps = [results(model, step(batch, 0))]
+    src = reshard(ref_state) if reshard is not None else None
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(ref_state[n] if src is None else src[n])
+    steps.append(results(model, step(batch, 1)))
+    return {"got": steps, "mult": dict(opt.mult),
+            "lr": [opt.schedule(i) for i in range(2)]}
+
+
+def _gathered_results(group, cut):
+    """_step_results with every sliced tensor made whole: each of `cut`'s
+    parameters ({parameter: how to join the ranks' slices}) all-gathered
+    over `group` and joined, its gradient too."""
+    def join(kind, parts):
+        if kind == "qkv":  # each rank's rows [q_r | k_r | v_r]
+            return torch.cat([torch.cat([p.chunk(3)[j] for p in parts])
+                              for j in range(3)])
+        return torch.cat(parts, dim=1 if kind == "row" else 0)
+
+    def whole(x, kind):
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.detach().contiguous(), group=group)
+        return _np(join(kind, parts))
+
+    def results(model, logs):
+        res = _step_results(model, logs)
+        for n, p in model.named_parameters():
+            if p in cut:
+                res["params"][n] = whole(p, cut[p])
+                res["grads"][n] = whole(p.grad, cut[p])
+        return res
+
+    return results
+
+
+def _marked(model):
+    """The parameters that parallel/tp.py or ep.py sliced (and marked)."""
+    return [p for p in model.parameters() if hasattr(p, "_grad_split")]
+
+
+def _tp_cut(model):
+    """{TP-sliced parameter: its join}: a weight by its linear's rule, a
+    bias as its linear's rows."""
+    kinds = {}
+    for name, lin in model.named_modules():
+        kind = par.tp.tp_rule(tuple(name.split(".")))
+        if isinstance(lin, torch.nn.Linear) and kind is not None:
+            kinds[lin.weight] = kind
+            if lin.bias is not None:
+                kinds[lin.bias] = "col" if kind == "row" else kind
+    return {p: kinds[p] for p in _marked(model)}
+
+
+def _resharder(cfg, shard):
+    """A state dict of the whole model -> the named parameters of the same
+    model sharded by `shard` (a function of the model)."""
+    def reshard(state):
+        model = VicaSplat(cfg.model)
+        model.load_state_dict(state)
+        return dict(shard(model).named_parameters())
+    return reshard
+
+
+def run_sp_tp_ep_steps(inp, out, world, rank):
+    """Training under SP, TP and EP against the single-process step on the
+    whole batch (the routed MoE in one pass over the whole call, a dense
+    step in the micro-batches each "data" row takes), and that step's own
+    spread under a 1e-7 relative change of the context images. World 2: SP (1, 2)
+    and TP (1, 2), each plain and with remat "dots" and 2 micro-batches, EP
+    (1, 2);
+    world 4: SP (2, 2), EP (2, 2). The step's results are whole on every
+    rank (TP's and EP's slices gathered): rank 0 keeps them."""
+    dense = train_batch(2)
+    moe_batch = train_batch(world, seed=2)
+    init = lambda cfg: init_vicasplat(cfg.model, torch.Generator().manual_seed(0), "cpu")
+    micro = dataclasses.replace(TINY_TRAIN, accumulate_steps=2)
+    runs = {}
+
+    def run(name, cfg, ref_cfg, batch, mine, model=None, **kw):
+        ref, states = _reference(ref_cfg, batch)
+        # the reference's own spread: the same steps from images 1e-7 apart
+        spread, _ = _reference(ref_cfg, _perturbed(batch), states[0])
+        r = _route_steps(cfg, model if model is not None else init(cfg), mine,
+                         states[0], **kw)
+        runs[name] = dict(r, ref=ref, spread=spread)
+
+    if world == 2:
+        mesh = par.make_mesh_sp(1, 2)
+        run("sp_1x2", TINY_TRAIN, TINY_TRAIN, dense, par.shard_batch(mesh, dense),
+            sp_mesh=mesh)
+        run("sp_remat_accum", REMAT_ACCUM, micro, dense,
+            par.shard_batch(mesh, dense), sp_mesh=mesh)
+        mesh = par.make_mesh_2d(1, 2)
+        for name, cfg, ref_cfg in (("tp_1x2", TINY_TRAIN, TINY_TRAIN),
+                                   ("tp_remat_accum", REMAT_ACCUM, micro)):
+            model = par.shard_params_tp(mesh, init(cfg))
+            out["tp_step_qkv_rows"] = tuple(model.backbone.dec_blocks[0].attn.qkv.weight.shape)
+            run(name, cfg, ref_cfg, dense, par.shard_batch(mesh, dense),
+                model=model, results=_gathered_results(mesh.get_group("model"),
+                                                       _tp_cut(model)),
+                reshard=_resharder(cfg, lambda m: par.shard_params_tp(mesh, m)))
+    else:
+        mesh = par.make_mesh_sp(2, 2)
+        run("sp_2x2", TINY_TRAIN, micro, dense, par.shard_batch(mesh, dense),
+            sp_mesh=mesh)
+    ep_shape = (1, 2) if world == 2 else (2, 2)
+    mesh = par.make_mesh_ep(*ep_shape)
+    model = par.shard_params_ep(mesh, init(MOE_TRAIN))
+    out["ep_step_local_experts"] = tuple(
+        model.backbone.dec_blocks[0].mlp.experts.fc1.w.shape)
+    run("ep_%dx%d" % ep_shape, MOE_TRAIN, MOE_TRAIN, moe_batch,
+        par.shard_batch(mesh, moe_batch, ("data", "expert")), model=model,
+        results=_gathered_results(mesh.get_group("expert"),
+                                  {p: "col" for p in _marked(model)}),
+        reshard=_resharder(MOE_TRAIN, lambda m: par.shard_params_ep(mesh, m)))
+    # the replicas and the gathered shards are the same on every rank
+    out["route_checksums"] = {k: [_diff(g, g)["checksum"] for g in r["got"]]
+                              for k, r in runs.items()}
+    if rank == 0:
+        out["steps"] = runs
+
+
 def run_ep(inp, out, world, rank, shape):
     mesh = par.make_mesh_ep(*shape)
     mod = tmoe.MoeMlp(*inp["moe_dims"])
@@ -309,9 +478,10 @@ def main(rank, world, root):
         inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
         inp["root"] = root
         routes = ([run_data_parallel, run_view_sharded, run_pipeline,
-                   run_pipeline_step, lambda *a: run_ep(*a, (1, 2)), run_train_mode]
+                   run_pipeline_step, lambda *a: run_ep(*a, (1, 2)), run_train_mode,
+                   run_sp_tp_ep_steps]
                   if world == 2 else
-                  [run_tp_sp, lambda *a: run_ep(*a, (2, 2))])
+                  [run_tp_sp, lambda *a: run_ep(*a, (2, 2)), run_sp_tp_ep_steps])
         for fn in routes:
             fn(inp, out, world, rank)
             dist.barrier()

@@ -404,6 +404,10 @@ class VicaNet(nn.Module):
           Not with MoE, nor with sp_mesh, as in JAX.
         - sp_mesh: a ("data", "seq") mesh; the patch tokens split over
           "seq" (parallel/sp.py); images are this rank's "data" slice.
+          Under autograd every rank's gradient is its share of the
+          gradient of the "seq" ranks' summed losses (each collective's
+          backward is its adjoint): training/step.make_train_step(
+          sp_mesh=...) averages it over the mesh.
         - ep_group: the group the MoE experts are sharded over
           (parallel/ep.py), with moe_token_group the ranks whose tokens
           make up the call (default all); moe_token_group alone (DDP)
@@ -416,12 +420,6 @@ class VicaNet(nn.Module):
         if sp_mesh is not None and ep_group is not None:
             raise ValueError("sp_mesh and ep_group are exclusive (one mesh "
                              "per forward, as in JAX)")
-        if (sp_mesh is not None and torch.is_grad_enabled()
-                and any(p.requires_grad for p in self.parameters())):
-            # the replicated camera path and the final gather would count
-            # each rank's copy of a gradient once per rank
-            raise NotImplementedError("sequence parallelism is a forward "
-                                      "route: call it under torch.no_grad()")
         run = _block_runner(remat, remat_policy)
         dev = images.device
         B, T, Himg, Wimg, _ = images.shape

@@ -9,6 +9,7 @@ JAX's rule for which leaves shard.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import Optional
@@ -56,9 +57,47 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data"):
     return make_device_mesh((n_devices or dist.get_world_size(),), (axis_name,))
 
 
-def mesh_coord(mesh, axis_name: str):
-    """(this rank's index along axis_name, the axis' size)."""
+def mesh_coord(mesh, axis_name):
+    """(this rank's index along axis_name, the axis' size); for a tuple of
+    axis names, the row-major index over them and their sizes' product."""
+    if isinstance(axis_name, tuple):
+        i, n = 0, 1
+        for a in axis_name:
+            ia, na = mesh_coord(mesh, a)
+            i, n = i * na + ia, n * na
+        return i, n
     return mesh.get_local_rank(axis_name), mesh.size(mesh.mesh_dim_names.index(axis_name))
+
+
+def mesh_group(mesh):
+    """The process group of every rank of a mesh laid over the whole world
+    (make_device_mesh's)."""
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"the mesh holds {mesh.size()} of "
+                         f"{dist.get_world_size()} ranks")
+    return dist.group.WORLD
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GradSplit:
+    """How training/step.make_train_step reduces the gradient of a parameter
+    of which each rank keeps a slice (parallel/tp.py, ep.py), set as the
+    parameter's `_grad_split`: summed over `reduce` and divided by
+    `divisor`; its squares summed over `norm` for the clip's norm. The
+    model's other leaves are averaged over `mesh` (the group of the whole
+    mesh, `mesh_size` ranks), and a MoE call routes the tokens of
+    `tokens` together (None: each rank's own)."""
+    reduce: object
+    divisor: int
+    norm: object
+    mesh: object
+    mesh_size: int
+    tokens: object = None
+
+
+def mark_split(params, split: GradSplit) -> None:
+    for p in params:
+        p._grad_split = split
 
 
 def _map(fn, tree):
@@ -69,9 +108,10 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def shard_batch(mesh, batch, axis_name: str = "data"):
+def shard_batch(mesh, batch, axis_name="data"):
     """Every tensor leaf of a batch tree -> this rank's contiguous slice of
-    its leading axis, as JAX's single-host `shard_batch` places it."""
+    its leading axis, as JAX's single-host `shard_batch` places it; over
+    several axes for a tuple of names (row-major)."""
     i, n = mesh_coord(mesh, axis_name)
 
     def take(x):

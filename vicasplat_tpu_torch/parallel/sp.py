@@ -14,6 +14,16 @@ they are explicit (`models/vicanet.py` with `sp_mesh`):
 - N need not divide by n_seq (the intrinsic token makes N = 257 at 256²):
   the tokens are padded to a multiple and the gathered keys cut back to N,
   so pad tokens are never attended to; the outputs are gathered and cut.
+
+Training (training/step.make_train_step(sp_mesh=...)): each rank passes its
+"data" slice of the batch (`shard_batch(mesh, batch)`) and, after the final
+gather, renders that slice whole and computes the same loss as the other
+"seq" ranks. Every collective's backward is its exact adjoint (an
+all-gather's is a reduce-scatter), so the "seq" ranks' gradients sum to
+n_seq times the gradient of their loss, the replicated camera path
+included; the step averages them over the whole mesh. This is the adjoint
+convention, unlike tensor parallelism's one-copy (Megatron) convention in
+comm.py's copy_to_group / reduce_from_group.
 """
 from __future__ import annotations
 

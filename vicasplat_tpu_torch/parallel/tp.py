@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from .comm import group_of
-from .mesh import make_device_mesh, mesh_coord
+from .mesh import GradSplit, make_device_mesh, mark_split, mesh_coord, mesh_group
 
 # (module path suffix, "col" | "row"), as JAX's _TP_RULES name the leaves
 TP_RULES = (
@@ -58,7 +58,8 @@ def tp_rule(path: tuple):
 
 
 @torch.no_grad()
-def _cut(lin: nn.Linear, kind: str, r: int, n: int) -> None:
+def _cut(lin: nn.Linear, kind: str, r: int, n: int) -> list:
+    """Keep rank r's slice of lin; returns the parameters that were cut."""
     w, b = lin.weight, lin.bias
     if kind == "col":
         m = w.shape[0] // n
@@ -73,19 +74,29 @@ def _cut(lin: nn.Linear, kind: str, r: int, n: int) -> None:
         m = w.shape[1] // n
         w = w[:, r * m:(r + 1) * m]
     lin.weight = nn.Parameter(w.contiguous())
-    if b is not None:
-        lin.bias = nn.Parameter(b.contiguous())
+    if kind == "row" or b is None:
+        return [lin.weight]
+    lin.bias = nn.Parameter(b.contiguous())
+    return [lin.weight, lin.bias]
 
 
 def shard_params_tp(mesh, model: nn.Module) -> nn.Module:
     """Keep this rank's "model" slice of every linear that TP_RULES names in
     the encoder and decoder blocks, and give each block the group. The head
-    counts and MLP widths must divide by the "model" size."""
+    counts and MLP widths must divide by the "model" size.
+
+    Marks each parameter cut for training/step.make_train_step (a
+    mesh.GradSplit). The gradients follow Megatron's one-copy convention
+    (parallel/comm.py): every "model" rank holds the whole gradient of each
+    replicated leaf and of its own slices, so a slice is averaged over
+    "data", every other leaf over the mesh, and the clip's norm sums the
+    slices' squares over "model"."""
     from ..models.moe import MoeMlp
     from ..models.vicanet import DecBlock, EncBlock
 
     group = group_of(mesh, "model")
     r, n = mesh_coord(mesh, "model")
+    sharded = []
     for bname, blk in model.named_modules():
         if not isinstance(blk, (EncBlock, DecBlock)):
             continue
@@ -100,6 +111,9 @@ def shard_params_tp(mesh, model: nn.Module) -> nn.Module:
             width = lin.weight.shape[1 if kind == "row" else 0]
             if width % (3 * n if kind == "qkv" else n):
                 raise ValueError(f"{bname}.{name} ({width}) does not split over {n}")
-            _cut(lin, kind, r, n)
+            sharded += _cut(lin, kind, r, n)
         blk.tp_group = group
+    mark_split(sharded, GradSplit(
+        reduce=group_of(mesh, "data"), divisor=mesh_coord(mesh, "data")[1], norm=group,
+        mesh=mesh_group(mesh), mesh_size=mesh.size()))
     return model

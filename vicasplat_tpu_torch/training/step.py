@@ -157,25 +157,27 @@ def _wrap_ddp(model: nn.Module, group):
         find_unused_parameters=True)
 
 
-def _sq_norm_sum(params, grads, pipeline_group, fsdp_group):
-    """The sum of squares of every gradient of the whole model: a DTensor
-    gradient's shards summed over the FSDP group, a pipeline stage's block
-    gradients summed over the stages, anything else counted once."""
+def _sq_norm_sum(params, grads, split_group: dict):
+    """The sum of squares of every gradient of the whole model: a gradient
+    split over a group (split_group[id(p)]: an FSDP shard, a pipeline
+    stage's blocks, a tensor-parallel slice, a rank's experts) summed over
+    that group, anything else counted once."""
     import torch.distributed as dist
 
-    rep = torch.zeros((), device=grads[0].device)
-    split = torch.zeros((), device=grads[0].device)
+    total = torch.zeros((), device=grads[0].device)
+    split = {}  # id(group) -> [group, sum], in the same order on every rank
     for p, g in zip(params, grads):
         sq = (local(g).float() ** 2).sum()
-        if hasattr(g, "to_local") or (pipeline_group is not None
-                                      and _in_block_stack(p)):
-            split = split + sq
+        group = split_group.get(id(p))
+        if group is None:
+            total = total + sq
         else:
-            rep = rep + sq
-    group = fsdp_group if fsdp_group is not None else pipeline_group
-    if group is not None:
-        dist.all_reduce(split, group=group)
-    return rep + split
+            entry = split.setdefault(id(group), [group, 0.0])
+            entry[1] = entry[1] + sq
+    for group, sq in split.values():
+        dist.all_reduce(sq, group=group)
+        total = total + sq
+    return total
 
 
 def _in_block_stack(p) -> bool:
@@ -184,9 +186,42 @@ def _in_block_stack(p) -> bool:
     return getattr(p, "_pipeline_block", False)
 
 
+# the largest flat buffer of one all-reduce in the step's reduction (gloo
+# moves a CUDA tensor through the host, one call per bucket)
+BUCKET_BYTES = 1 << 28
+
+
+def _all_reduce_div(tensors, group, divisor: int):
+    """Sum each tensor over `group` in place, then divide it by `divisor`;
+    the tensors go in flat buckets of one dtype of at most BUCKET_BYTES."""
+    import torch.distributed as dist
+
+    if group is not None and dist.get_world_size(group) > 1:
+        by_dtype = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for ts in by_dtype.values():
+            i = 0
+            while i < len(ts):
+                j, size = i + 1, ts[i].numel() * ts[i].element_size()
+                while j < len(ts) and size + ts[j].numel() * ts[j].element_size() \
+                        <= BUCKET_BYTES:
+                    size += ts[j].numel() * ts[j].element_size()
+                    j += 1
+                flat = torch.cat([t.reshape(-1) for t in ts[i:j]])
+                dist.all_reduce(flat, group=group)
+                for t, f in zip(ts[i:j], flat.split([t.numel() for t in ts[i:j]])):
+                    t.copy_(f.view_as(t))
+                i = j
+    if divisor != 1:
+        for t in tensors:
+            t.div_(divisor)
+
+
 def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
                     lpips_fn=None, teacher_fn=None, *, ddp_group=None,
-                    pipeline_group=None, pipeline_n_micro: Optional[int] = None):
+                    pipeline_group=None, pipeline_n_micro: Optional[int] = None,
+                    sp_mesh=None):
     """train_step(batch, global_step, phase="full") -> logs: one optimizer
     update of `model` in place. With accumulate_steps = A the batch splits
     into A contiguous micro-batches; their gradients, loss and logs are
@@ -202,10 +237,11 @@ def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
 
     Every route runs the same step: the model's forward (`VicaSplat.forward`
     applies compute_loss) through its wrapper, if any, then `.backward()`,
-    then the guard on the gradient that the route has reduced. Each equals
-    the single-process step on the whole batch, guard included:
-    - ddp_group: data parallelism by DDP. Each rank passes its own slice of
-      the global batch (parallel/mesh.shard_batch) and renders only its own
+    then the guard on the gradient that the route has reduced, each
+    micro-batch's. Each equals the single-process step on the whole batch,
+    guard included, and each rank passes its own slice of the global batch
+    (parallel/mesh.shard_batch):
+    - ddp_group: data parallelism by DDP. Each rank renders only its own
       examples. DDP averages each micro-batch's gradients across the group
       (no `no_sync`), so the guard sees the micro-batch's gradient of the
       whole batch, as JAX's data mesh guards it.
@@ -215,13 +251,44 @@ def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
     - pipeline_group (pipeline_n_micro): the backbone's stacks as a GPipe
       pipeline (parallel/pp.py; shard_params_pp on the model's stacks);
       each stage updates its own blocks, the clip takes the norm over all.
-    Sequence, tensor and expert parallelism are forward routes
-    (VicaNet.forward) and take no part in the step."""
+    - sp_mesh: sequence parallelism on a ("data", "seq") mesh (JAX's
+      make_train_step(sp_mesh=...); parallel/sp.py). Each rank passes its
+      "data" slice and computes its "data" row's loss; every gradient is
+      averaged over the mesh (the adjoint convention: the "seq" ranks'
+      gradients sum to n_seq times their loss's). A MoE model routes its
+      "data" row's tokens together.
+    - a model sharded by parallel/tp.shard_params_tp: tensor parallelism
+      on its ("data", "model") mesh, each rank passing its "data" slice.
+      Megatron's one-copy convention: every "model" rank holds the whole
+      gradient of its slices and of each replicated leaf. Slices are
+      averaged over "data", replicated leaves over the mesh (equal on the
+      "model" ranks, so the replicas stay bit for bit equal); the clip's
+      norm sums the slices' squares over "model".
+    - a model sharded by parallel/ep.shard_params_ep: expert parallelism on
+      its ("data", "expert") mesh, each rank passing its slice of the
+      batch over both axes. Replicated leaves (the router included) are
+      averaged over the mesh; each expert's gradient, summed by the
+      all_to_all's backward over the ranks its tokens came from, is summed
+      over "data" and divided by the mesh's size; the clip's norm counts
+      each expert once.
+    Sequence, tensor and expert parallelism take no other route with them;
+    a model sharded for EP refuses sp_mesh, as JAX's forward does."""
     import torch.distributed as dist
+
+    from ..parallel.mesh import mesh_group
 
     fsdp_group = getattr(model, "fsdp_group", None)
     params = [p for p in model.parameters() if p.requires_grad and not p.is_meta]
-    replicated = {id(p) for p in getattr(model, "fsdp_replicated", ())}
+    # parameters sliced by parallel/tp.py or ep.py, each marked by its split
+    splits = {id(p): p._grad_split for p in params if hasattr(p, "_grad_split")}
+    kinds = {id(s): s for s in splits.values()}
+    routes = [name for name, on in (
+        ("ddp_group", ddp_group is not None), ("pipeline_group", pipeline_group is not None),
+        ("FSDP2", fsdp_group is not None), ("sp_mesh", sp_mesh is not None))
+        if on] + ["tensor or expert parallelism"] * len(kinds)
+    if (sp_mesh is not None or splits) and len(routes) > 1:
+        raise ValueError(f"sequence, tensor and expert parallelism train alone: "
+                         f"{routes}")
     entry = _wrap_ddp(model, ddp_group) if ddp_group is not None else model
     parallel = {}
     if pipeline_group is not None:
@@ -229,7 +296,30 @@ def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
                         pipeline_n_micro=pipeline_n_micro)
     if ddp_group is not None and cfg.model.backbone.moe_experts:
         parallel["moe_token_group"] = ddp_group  # route the whole batch
+    # reduce: (parameters, group, divisor), each gradient summed over the
+    # group and divided; norm_split: the group each split gradient's
+    # squares are summed over for the clip's norm
+    reduce, norm_split = [], {}
     reduce_group = ddp_group if ddp_group is not None else fsdp_group
+    if fsdp_group is not None:
+        replicated = {id(p) for p in model.fsdp_replicated}
+        reduce.append(([p for p in params if id(p) in replicated], fsdp_group,
+                       dist.get_world_size(fsdp_group)))
+        norm_split.update((id(p), fsdp_group) for p in params if hasattr(p, "to_local"))
+    if sp_mesh is not None:
+        parallel["sp_mesh"] = sp_mesh
+        reduce_group = mesh_group(sp_mesh)
+        reduce.append((params, reduce_group, sp_mesh.size()))
+        if cfg.model.backbone.moe_experts:
+            parallel["moe_token_group"] = sp_mesh.get_group("data")
+    for cut in kinds.values():  # at most one
+        reduce_group = cut.mesh
+        if cut.tokens is not None:
+            parallel["moe_token_group"] = cut.tokens
+        reduce.append(([p for p in params if id(p) in splits], cut.reduce, cut.divisor))
+        reduce.append(([p for p in params if id(p) not in splits], cut.mesh,
+                       cut.mesh_size))
+        norm_split.update((i, cut.norm) for i in splits)
 
     def average(t, group):
         if group is None:
@@ -246,8 +336,9 @@ def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
                            phase, teacher_fn, anchor, parallel)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        grads = [average(g, fsdp_group) if id(p) in replicated else g
-                 for p, g in zip(params, grads)]
+        index = {id(p): i for i, p in enumerate(params)}
+        for ps, group, divisor in reduce:
+            _all_reduce_div([local(grads[index[id(p)]]) for p in ps], group, divisor)
         for g in grads:  # the NaN guard, on each rank's own shard
             gl = local(g)
             f = torch.isfinite(gl)
@@ -289,7 +380,10 @@ def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
             logs = {k: v * (1.0 / A) for k, v in logs.items()}
         for p, g in zip(params, grads):
             p.grad = g
-        g_norm = torch.sqrt(_sq_norm_sum(params, grads, pipeline_group, fsdp_group))
+        if pipeline_group is not None:  # marked by the forward
+            norm_split.update((id(p), pipeline_group) for p in params
+                              if _in_block_stack(p))
+        g_norm = torch.sqrt(_sq_norm_sum(params, grads, norm_split))
         optimizer.step(g_norm=g_norm)
         logs["loss"] = loss
         logs["grad_norm"] = g_norm
