@@ -197,9 +197,34 @@ Phases, each printing lines with their seconds:
             backward launches, a finite loss, the loader's seconds a batch
             beside the step time), and its test mode on the first indexed
             scene with that step's checkpoint in the accelerator
-            configuration, 10 alignment
-            steps: K1 12, K3 1, K2 and K4 once a rendered view, finite PSNR,
-            SSIM and ATE, the files written.
+            configuration, 1 alignment step (cut from 10: experiments
+            scores three scenes at 10): K1 12, K3 1, K2 and K4 once a
+            rendered view, finite PSNR, SSIM and ATE, the files written.
+  experiments the public experiment configs re10k_2view, acid_2view and
+            re10k_4view at full width (ViT-L 24 x 1024, decoder 12 x 768,
+            DPT heads, SH degree 4, bf16) from re10k's chunks (acid_2view
+            through the acid name), each at its own global batch (16 of 2
+            context and 4 target views; 2 of 4 and 8), split into
+            micro-batches only where the memory reckoning
+            (experiment_reckoning: parallel/memory_proof.py's state and
+            activations fitted to two measured peaks) and a measured
+            out-of-memory say so: 1 train step (host ms, the device span
+            by CUDA events) with a finite loss, the NaN guard at 0 and K1's
+            launches by the config's own remat setting (k1_step_launches:
+            dec_depth forwards without remat, twice that with, dec_depth
+            backwards, a micro-batch), the K1 shapes, step ms, peak against
+            the reckoning; then its test mode on re10k's first indexed
+            scene with that checkpoint, 10 alignment steps: re10k_2view and
+            acid_2view on the 2-view index in the default configuration (K1
+            12), re10k_4view on a 4-view extend_index in the accelerator
+            configuration (K1 12, K3 1, K2 and K4 once a rendered view),
+            finite PSNR, SSIM and ATE and the files written; then the same
+            scene rendered again with its depth and written in ScanNet's
+            layout (JPEG colour, 16-bit depth PNGs in millimetres, poses and
+            intrinsics), indexed by index_generator and extend_index
+            (--scene_dirs), and scored by eval_pose with re10k_2view's
+            checkpoint and dataset=scannet_pose: K1 12, a finite ATE and
+            pose AUCs (two views have no RPE).
   distill   distillation: first two float32 steps, "distill_only" then
             "distill", of the committed synthetic_pose student with a
             small DUSt3R teacher drawn from a seed (96 x 2 encoder, 64 x 4
@@ -242,7 +267,8 @@ Phases, each printing lines with their seconds:
             (synthetic_pose and its MoE variant in float32 under SP, TP and
             EP, every gradient norm and update held) beside this process's
             first steps, then the flagship's SP (1 x 2) and TP (1 x 2) steps
-            at batch 1 x (8 + 12) and the MoE flagship's EP (1 x 2) step at
+            at batch 1 x (8 + 4) (cut from 8 + 12 to pay for experiments)
+            and the MoE flagship's EP (1 x 2) step at
             batch 2 x (8 + 12), 1 a rank (K1 launches exact on each rank,
             K1's backward held on the SP step's own inputs (Sq != Sk) under
             the k1-bwd rule, the loss held, ms and peak a rank); a world-2
@@ -424,12 +450,35 @@ RE10K_INDEX = {"min_distance": 20, "max_distance": 120, "min_overlap": 0.85,
 # one train step from the chunks (cut from 2 for the 600 s budget;
 # its checkpoint feeds the test mode)
 RE10K_TRAIN_STEPS = 1
+# the test mode's alignment steps (the config's 100, cut): experiments'
+# three scenes take these; re10k's own scene takes RE10K_PHASE_ALIGN_STEPS
+# (cut from 10 once experiments scored three scenes at 10)
 RE10K_ALIGN_STEPS = 10
+RE10K_PHASE_ALIGN_STEPS = 1
 # the port's decode of the converter's files (JPEG at quality 95, 4:2:0)
 # against the rendered frames, in luma (JPEG's Y). Their RGB PSNR is printed:
 # the generator's per-splat colour noise is finer than the 2x2 chroma
 # samples, so 4:2:0 loses it (about 33 dB; PIL's files are the same bytes)
 RE10K_PSNR_MIN = 40.0
+# experiments: the public experiment configs that only the JAX package had
+# trained and scored, each trained at full width from re10k's chunks at its
+# own global batch, EXPERIMENT_STEPS steps, then its test mode on re10k's
+# first indexed scene with the cut alignment steps (RE10K_ALIGN_STEPS). The
+# step's device time is the span of CUDA events around it: tracing its
+# kernels (tools/experiments_trace.py) held a step up for 21-57 s against
+# 6-10 s untraced (H100 80GB HBM3)
+EXPERIMENTS = ("re10k_2view", "acid_2view", "re10k_4view")
+EXPERIMENT_STEPS = 1
+# the memory reckoning's activations (GB a micro-batch's context frame and
+# target view at 256^2, bf16): fitted to two peaks measured on an H100
+# 80GB HBM3, the flagship step at 2 x (8 + 12) with remat "dots" (67.9 GB)
+# and distill.yaml's micro-batch of 8 x (2 + 4) with whole-block remat and
+# the ViT-L teacher (79.2 GB, 2.3 GB of it the teacher's weights), beside
+# 10.4 GB of state and bf16 weights; a split is tried from the smallest
+# whose reckoning is under EXPERIMENT_FIT_GB, a larger one after an
+# out-of-memory
+EXPERIMENT_ACT_GB = {"context": 2.0, "target": 1.1}
+EXPERIMENT_FIT_GB = 80.0
 # distill: two float32 steps (distill_only, distill) of the committed
 # synthetic_pose student with a small DUSt3R teacher against the JAX
 # package's on the CPU (tools/jax_distill_reference.py). The teacher's
@@ -510,7 +559,8 @@ STEP_TOL = 1e-6
 #   group's gradient norm, every group's update mass (the sum of |p1 - p0|
 #   over every rank, slices summed) and its signed update sum (relative to
 #   the mass) within FLASH_BWD_FLOOR, the replicas equal
-ROUTE_BATCH, ROUTE_TARGETS = 1, 12
+# (ROUTE_TARGETS cut from 12 to pay for the experiments phase)
+ROUTE_BATCH, ROUTE_TARGETS = 1, 4
 EP_TARGETS = 12
 # the tiled render against the brute-force oracle on the CPU test's scene:
 # its own tolerances (tests/test_torch_raster_reference.py, after JAX's
@@ -1475,6 +1525,21 @@ def profile_window(fn):
     return wall_ms, device_ms, ops[:8], kernels
 
 
+def device_kernel_ms(fn):
+    """(fn(), the device ms of the kernels it ran): torch.profiler tracing
+    the card alone (tracing the host's operators too held a full-width
+    train step up for 50-120 s, the card alone for 21-57 s; H100 80GB
+    HBM3)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+
+
 def small_scene():
     """1,000 random splats (SH degree 4) and 2 views of 96 x 128."""
     from vicasplat_tpu_torch.ops.rasterize.projection import cov6_from_scale_rot
@@ -2390,11 +2455,13 @@ def wandb_core_children():
     return kids
 
 
-def train_mode_run(dev, argv, reset_counts, counts, keep_batches=()):
+def train_mode_run(dev, argv, reset_counts, counts, keep_batches=(), kernel_time=False):
     """vicasplat_tpu_torch.main.main(argv) in train mode, with each step's
-    kernel launches, seconds (synchronized), NaN-guard count and scene ids,
-    and the batches of the steps in `keep_batches` (cloned on the card);
-    checks that the loader's threads are gone afterwards."""
+    kernel launches, seconds (synchronized), device span (CUDA events around
+    the step), NaN-guard count and scene ids, the batches of the steps in
+    `keep_batches` (cloned on the card), and with `kernel_time` each step's
+    device kernel ms (device_kernel_ms; its seconds then hold the tracer's
+    cost); checks that the loader's threads are gone afterwards."""
     import threading
 
     from vicasplat_tpu_torch import main as tmain
@@ -2417,11 +2484,18 @@ def train_mode_run(dev, argv, reset_counts, counts, keep_batches=()):
             torch.cuda.synchronize()
             peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
             torch.cuda.reset_peak_memory_stats()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t = time.perf_counter()
-            logs = step(batch, global_step, phase)
+            e0.record()
+            if kernel_time:
+                logs, kernel_ms = device_kernel_ms(lambda: step(batch, global_step, phase))
+            else:
+                logs, kernel_ms = step(batch, global_step, phase), None
+            e1.record()
             torch.cuda.synchronize()
             after = counts()
-            steps.append(dict(step=global_step, phase=phase,
+            steps.append(dict(step=global_step, phase=phase, kernel_ms=kernel_ms,
+                              device_span_ms=e0.elapsed_time(e1),
                               ms=(time.perf_counter() - t) * 1e3,
                               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                               nonfinite=int(step.nonfinite),
@@ -3121,32 +3195,23 @@ def luma(rgb):
 
 
 def re10k_scenes(dev, out: pathlib.Path) -> dict:
-    """The synthetic generator's scenes 0.. at RE10K_HW, rendered on the card
-    in chunks of frames, written as <out>/<scene>/images/<i>.png (threads:
-    zlib releases the GIL) and cameras.npz (normalized K, c2w). Returns the
-    frames (uint8) by scene."""
+    """The synthetic generator's scenes 0.. at RE10K_HW (re10k_scene_views),
+    written as <out>/<scene>/images/<i>.png (threads: zlib releases the
+    GIL) and cameras.npz (normalized K, c2w). Returns the frames (uint8) by
+    scene."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from vicasplat_tpu_torch.data import synthetic_scenes as scenes
-    from vicasplat_tpu_torch.utils.image_io import encode_png, to_uint8
+    from vicasplat_tpu_torch.utils.image_io import encode_png
 
-    cfg = scenes.SyntheticScenesConfig(input_image_shape=RE10K_HW, n_frames=RE10K_FRAMES,
-                                       n_gaussians=RE10K_GAUSSIANS)
-    K = scenes.intrinsics_for(cfg)
-    K[1, 1] *= RE10K_HW[1] / RE10K_HW[0]  # square pixels
     frames = {}
     with ThreadPoolExecutor(max_workers=8) as pool:
         for s in range(RE10K_SCENES):
-            rng = scenes.scene_rng(s, cfg)
-            gauss = scenes.scene_gaussians(rng, cfg)
-            poses = scenes.scene_trajectory(rng, cfg)
-            imgs = np.concatenate([to_uint8(scenes.render_scene_frames(
-                gauss, poses[i:i + 16], K, RE10K_HW, device=dev))
-                for i in range(0, RE10K_FRAMES, 16)])
+            v = re10k_scene_views(dev, s)
             d = out / f"scene_{s:02d}"
             (d / "images").mkdir(parents=True)
-            np.savez(d / "cameras.npz", intrinsics=np.tile(K, (RE10K_FRAMES, 1, 1)),
-                     extrinsics_c2w=poses)
+            np.savez(d / "cameras.npz", intrinsics=np.tile(v["K"], (RE10K_FRAMES, 1, 1)),
+                     extrinsics_c2w=v["c2w"])
+            imgs = v["frames"]
             list(pool.map(lambda i, d=d, imgs=imgs: (d / "images" / f"{i:04d}.png")
                           .write_bytes(encode_png(imgs[i])), range(RE10K_FRAMES)))
             frames[d.name] = imgs
@@ -3243,7 +3308,7 @@ def re10k_phase(dev, smi, reset_counts, counts, zero):
         tr = train_mode_run(dev, argv, reset_counts, counts)
     for st in tr["steps"]:
         expect_launches(f"re10k train step {st['step']}", st["launches"],
-                        dict(zero, flash_attn=2 * dec_depth, flash_attn_bwd=dec_depth))
+                        k1_step_launches(parse_cli(argv), zero))
     batch = parse_cli(argv).data_loader["train"]["batch_size"]
     loader_s = batch * statistics.mean(example_s)
     snap = out / "ckpts" / f"step_{RE10K_TRAIN_STEPS:08d}.npz"
@@ -3273,7 +3338,7 @@ def re10k_phase(dev, smi, reset_counts, counts, zero):
     tout = work / "test"
     argv = ["+experiment=re10k_8view", "mode=test", f"dataset.re10k.roots=[{work / 're10k'}]",
             "dataset.re10k.view_sampler={name: evaluation, index_path: " f"{one}, "
-            "num_context_views: 8}", f"test.pose_align_steps={RE10K_ALIGN_STEPS}",
+            "num_context_views: 8}", f"test.pose_align_steps={RE10K_PHASE_ALIGN_STEPS}",
             f"test.output_path={tout}", f"checkpointing.load={snap}",
             "encoder.head_tail_backend=pallas", "decoder.rasterize.backend=pallas",
             "decoder.rasterize.binning=origin"]
@@ -3291,7 +3356,7 @@ def re10k_phase(dev, smi, reset_counts, counts, zero):
         summary, results = tmain.main(argv, device=dev)
     torch.cuda.synchronize()
     launches = counts()
-    n = (RE10K_ALIGN_STEPS + 1) * sum(views)
+    n = (RE10K_PHASE_ALIGN_STEPS + 1) * sum(views)
     expect_launches("re10k test mode", launches, dict(
         zero, flash_attn=dec_depth, dpt_tail=1, composite=n, bitonic_topk=n))
     files = [tout / name for name in ("scores_all_avg.json", "benchmark.json",
@@ -3309,7 +3374,8 @@ def re10k_phase(dev, smi, reset_counts, counts, zero):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     phase("re10k", t0, f"[{smi}] test mode, re10k_8view accelerator configuration on "
           f"{scene} (8 context views, {views[0]} targets, the {RE10K_TRAIN_STEPS}-step checkpoint, "
-          f"{RE10K_ALIGN_STEPS} alignment steps): launches {launches}; psnr "
+          f"{RE10K_PHASE_ALIGN_STEPS} alignment steps, cut from {RE10K_ALIGN_STEPS}): "
+          f"launches {launches}; psnr "
           f"{r['psnr']:.4f} ssim {r['ssim']:.4f} ate {r['ate']:.4f}; seconds "
           + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
           + f"; peak {peak_gb:.1f} GB; {time.perf_counter() - t1:.1f} s")
@@ -3319,6 +3385,332 @@ def re10k_phase(dev, smi, reset_counts, counts, zero):
     rec["wall_s"] = time.perf_counter() - t0
     shutil.rmtree(work / "train" / "ckpts", ignore_errors=True)
     return rec
+
+
+def experiment_reckoning(cfg, micro: int) -> dict:
+    """The card memory (GB, 1e9 bytes) a train step of the parsed root
+    config `cfg` in `micro` micro-batches is reckoned to take: the state of
+    parallel/memory_proof.py's reckoning on one device (parameters,
+    gradients, AdamW's moments), the bf16 copies of the weights, and the
+    activations of one micro-batch at EXPERIMENT_ACT_GB a context frame and
+    a target view."""
+    from vicasplat_tpu_torch.parallel import memory_proof
+    from vicasplat_tpu_torch.training import TrainConfig
+
+    state = memory_proof.reckon(TrainConfig(model=cfg.encoder, optimizer=cfg.optimizer),
+                                ("dp8",))["configs"]["dp8"]
+    sampler = next(iter(cfg.dataset.values()))["view_sampler"]
+    batch = cfg.data_loader["train"]["batch_size"] // micro
+    ctx, tgt = batch * sampler["num_context_views"], batch * sampler["num_target_views"]
+    act = ctx * EXPERIMENT_ACT_GB["context"] + tgt * EXPERIMENT_ACT_GB["target"]
+    r = dict(state_gb=state["state_bytes"] / 1e9, bf16_weights_gb=state["param_bytes"] / 2e9,
+             activations_gb=act, micro_batch=batch, context=ctx, targets=tgt)
+    r["total_gb"] = r["state_gb"] + r["bf16_weights_gb"] + act
+    return r
+
+
+def experiment_splits(cfg) -> list:
+    """The micro-batch counts (dividing the config's batch) to try in turn:
+    from the smallest whose reckoning is under EXPERIMENT_FIT_GB."""
+    batch = cfg.data_loader["train"]["batch_size"]
+    splits = [m for m in (1, 2, 4, 8, 16) if batch % m == 0]
+    fits = [m for m in splits if experiment_reckoning(cfg, m)["total_gb"] <= EXPERIMENT_FIT_GB]
+    return [m for m in splits if m >= (fits[0] if fits else splits[-1])]
+
+
+def re10k_scene_views(dev, s: int) -> dict:
+    """The synthetic generator's scene s at RE10K_HW, every frame rendered
+    on the card in chunks of 16 as the generator renders them
+    (data/synthetic_scenes.render_scene_frames), with square pixels (the
+    vertical focal length scaled by W / H, as RE10K's cameras have):
+    uint8 frames, the expected depth (metres, 0 where the alpha is under
+    0.5), c2w and the normalized K."""
+    from vicasplat_tpu_torch.data import synthetic_scenes as scenes
+    from vicasplat_tpu_torch.ops.rasterize import RasterizeConfig, render
+    from vicasplat_tpu_torch.ops.rasterize.projection import cov6_from_scale_rot
+    from vicasplat_tpu_torch.utils.image_io import to_uint8
+
+    cfg = scenes.SyntheticScenesConfig(input_image_shape=RE10K_HW, n_frames=RE10K_FRAMES,
+                                       n_gaussians=RE10K_GAUSSIANS)
+    K = scenes.intrinsics_for(cfg)
+    K[1, 1] *= RE10K_HW[1] / RE10K_HW[0]
+    rng = scenes.scene_rng(s, cfg)
+    g = {k: torch.from_numpy(v).to(dev) for k, v in scenes.scene_gaussians(rng, cfg).items()}
+    poses = scenes.scene_trajectory(rng, cfg)
+    frames, depths = [], []
+    with torch.no_grad():
+        for i in range(0, RE10K_FRAMES, 16):
+            p = torch.from_numpy(poses[i:i + 16]).to(dev)
+            color, depth, alpha = render(
+                g["means"], cov6_from_scale_rot(g["scales"], g["rotations"]), g["harmonics"],
+                g["opacities"], p, torch.from_numpy(K).to(dev).expand(len(p), 3, 3), RE10K_HW,
+                torch.zeros(3, device=dev), 0, cfg=RasterizeConfig(max_per_tile=256))
+            frames.append(to_uint8(color.clamp(0.0, 1.0).cpu().numpy()))
+            depths.append(torch.where(alpha > 0.5, depth / alpha.clamp(min=1e-6),
+                                      torch.zeros_like(depth)).cpu().numpy())
+    return dict(frames=np.concatenate(frames), depth=np.concatenate(depths), c2w=poses, K=K)
+
+
+def experiments_phase(dev, smi, reset_counts, counts, zero, kernel_time=False):
+    """Phase experiments (see the module's docstring); with `kernel_time`
+    each train step also traced for its device kernel ms
+    (tools/experiments_trace.py: the tracer holds a step up for 20-60 s)."""
+    import gc
+    import shutil
+
+    from vicasplat_tpu_torch import eval_pose
+    from vicasplat_tpu_torch import main as tmain
+    from vicasplat_tpu_torch.evaluation import extend_index, index_generator, nvs_eval
+    from vicasplat_tpu_torch.models import vicanet
+    from vicasplat_tpu_torch.utils.config import parse_cli
+
+    t0 = time.perf_counter()
+    src = ROOT / "build/chip_smoke_re10k"
+    work = ROOT / "build/chip_smoke_experiments"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    index2 = src / "index/evaluation_index.json"
+    scene = sorted(k for k, v in json.loads(index2.read_text()).items() if v is not None)[0]
+    one2 = work / "index_2v_one.json"
+    one2.write_text(json.dumps({scene: json.loads(index2.read_text())[scene]}))
+    index4 = extend_index.main(["--index_2v", str(one2), "--data_root", str(src / "re10k/test"),
+                                "--n_context", "4", "--n_target", "3",
+                                "--output", str(work / "index_4v.json")])
+    if scene not in index4:
+        raise AssertionError(f"the 4-view extension lost {scene}: {index4}")
+    shapes = []
+    attend = vicanet.flash_attention
+
+    def spy_k1(q, k, v, *a, **kw):  # K1's shapes, once each
+        shape = (tuple(q.shape), tuple(k.shape))
+        if shape not in shapes:
+            shapes.append(shape)
+        return attend(q, k, v, *a, **kw)
+
+    rec = {"scene": scene, "index_4v": index4[scene]}
+    ckpts = {}
+    for name in EXPERIMENTS:
+        t1 = time.perf_counter()
+        ds = "acid" if name.startswith("acid") else "re10k"
+        base = parse_cli([f"+experiment={name}"])
+        batch = base.data_loader["train"]["batch_size"]
+        # the loader restarts each pass over the chunks with the same seed,
+        # so a pass must hold a whole batch
+        roots = "[" + ",".join([str(src / "re10k")] * max(1, batch // RE10K_SCENES)) + "]"
+        out = work / name
+        splits, tried = experiment_splits(base), []
+        for micro in splits:
+            argv = [f"+experiment={name}", "mode=train", f"dataset.{ds}.roots={roots}",
+                    f"trainer.max_steps={EXPERIMENT_STEPS}", f"train.accumulate_grad_batches={micro}",
+                    "train.print_log_every_n_steps=1", "trainer.val_check_interval=0",
+                    f"output_dir={out}", f"checkpointing.output_dir={out}/ckpts",
+                    "wandb.mode=disabled"]
+            cfg = parse_cli(argv)
+            reckoned = experiment_reckoning(cfg, micro)
+            shutil.rmtree(out, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            shapes.clear()
+            try:
+                with mock.patch.object(vicanet, "flash_attention", spy_k1):
+                    tr = train_mode_run(dev, argv, reset_counts, counts,
+                                        kernel_time=kernel_time)
+                break
+            except torch.cuda.OutOfMemoryError:
+                tried.append(dict(micro=micro, reckoned_gb=reckoned["total_gb"],
+                                  peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+                phase("experiments", t0, f"{name}: {micro} micro-batches of {batch // micro}: "
+                      f"out of memory at {tried[-1]['peak_gb']:.1f} GB (reckoned "
+                      f"{reckoned['total_gb']:.1f} GB)")
+        else:
+            raise AssertionError(f"{name}: the step fits in no split: {tried}")
+        want = k1_step_launches(cfg, zero)
+        for st in tr["steps"]:
+            expect_launches(f"{name} train step {st['step']}", st["launches"], want)
+        ckpt = out / "ckpts" / f"step_{EXPERIMENT_STEPS:08d}.npz"
+        if not ckpt.exists():
+            raise AssertionError(f"no checkpoint {ckpt}")
+        ckpts[name] = ckpt
+        views = base.dataset[ds]["view_sampler"]
+        last = tr["steps"][-1]
+        phase("experiments", t0, f"[{smi}] {name} train mode at full width from re10k's chunks "
+              f"({ds} name): batch {batch} of "
+              f"{views['num_context_views']} context and {views['num_target_views']} target "
+              f"views as {micro} micro-batches of {batch // micro} (reckoned "
+              + ", ".join(f"{m}: {experiment_reckoning(cfg, m)['total_gb']:.1f} GB"
+                          for m in splits[:splits.index(micro) + 1])
+              + f"; out of memory: {[t['micro'] for t in tried] or 'none'}); remat "
+              f"{cfg.train.gradient_checkpointing} policy {cfg.train.remat_policy!r}, "
+              f"temporal_rope_theta {cfg.encoder.backbone.temporal_rope_theta}; losses "
+              + ", ".join(f"{st['loss']:.5f}" for st in tr["steps"])
+              + f"; nan guard {[st['nonfinite'] for st in tr['steps']]}; step ms (host) "
+              + ", ".join(f"{st['ms']:.1f}" for st in tr["steps"])
+              + "; device span (CUDA events) " + ", ".join(
+                  f"{st['device_span_ms']:.1f}" for st in tr["steps"])
+              + ("" if not kernel_time else "; device kernels (traced) " + ", ".join(
+                  f"{st['kernel_ms']:.1f}" for st in tr["steps"]))
+              + f"; launches a step {last['launches']} (want {want}); K1 shapes (q, k) "
+              f"{shapes}; peak "
+              f"{tr['peak_gb']:.2f} GB against reckoned {reckoned['total_gb']:.2f} GB "
+              f"(state {reckoned['state_gb']:.2f}, bf16 weights "
+              f"{reckoned['bf16_weights_gb']:.2f}, activations {reckoned['activations_gb']:.2f}); "
+              f"{time.perf_counter() - t1:.1f} s")
+        r = dict(batch=batch, micro=micro, out_of_memory=tried, reckoned=reckoned,
+                 peak_gb=tr["peak_gb"], wall_s=tr["wall_s"], k1_shapes=list(shapes),
+                 want=want, steps=[{k: v for k, v in st.items() if k != "scenes"}
+                                   for st in tr["steps"]])
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the test mode on the indexed scene with that checkpoint ----
+        t1 = time.perf_counter()
+        accel = name == "re10k_4view"
+        n_ctx = views["num_context_views"]
+        index = one2 if n_ctx == 2 else work / "index_4v.json"
+        tout = out / "test"
+        argv = [f"+experiment={name}", "mode=test", f"dataset.{ds}.roots=[{src / 're10k'}]",
+                f"dataset.{ds}.view_sampler={{name: evaluation, index_path: {index}, "
+                f"num_context_views: {n_ctx}}}", f"test.pose_align_steps={RE10K_ALIGN_STEPS}",
+                f"test.output_path={tout}", f"checkpointing.load={ckpt}"]
+        if accel:
+            argv += ["encoder.head_tail_backend=pallas", "decoder.rasterize.backend=pallas",
+                     "decoder.rasterize.binning=origin"]
+        seen = []
+        evaluate = nvs_eval.evaluate_scene
+
+        def counted(*a, **kw):
+            res = evaluate(*a, **kw)
+            seen.append(a[4]["target"]["image"].shape[1])
+            return res
+
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(nvs_eval, "evaluate_scene", counted):
+            _, results = tmain.main(argv, device=dev)
+        torch.cuda.synchronize()
+        launches = counts()
+        dec_depth = cfg.encoder.backbone.dec_depth
+        n = (RE10K_ALIGN_STEPS + 1) * sum(seen)
+        want = (dict(zero, flash_attn=dec_depth, dpt_tail=1, composite=n, bitonic_topk=n)
+                if accel else dict(zero, flash_attn=dec_depth))
+        expect_launches(f"{name} test mode", launches, want)
+        files = [tout / f for f in ("scores_all_avg.json", "benchmark.json",
+                                    "peak_memory.json")] + [
+            tout / scene / f for f in ("transforms.json", "compare.png", "color/000.png",
+                                       f"context/{n_ctx - 1:03d}.png")]
+        res = results[0] if results else {}
+        bad = [k for k in ("psnr", "ssim", "ate") if not math.isfinite(res.get(k, math.nan))]
+        missing = [str(f) for f in files if not f.exists()]
+        if len(results) != 1 or bad or missing:
+            raise AssertionError(f"{name} test mode: {len(results)} scenes, non-finite {bad}, "
+                                 f"missing {missing}")
+        secs = {k: v["mean_warm_s"] for k, v in json.loads(
+            (tout / "benchmark.json").read_text()).items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        phase("experiments", t0, f"[{smi}] {name} test mode on {scene} "
+              f"({'accelerator' if accel else 'default'} configuration, {n_ctx} context "
+              f"views, {seen[0]} targets, {RE10K_ALIGN_STEPS} alignment steps, the "
+              f"{EXPERIMENT_STEPS}-step checkpoint): launches {launches}; psnr "
+              f"{res['psnr']:.4f} ssim {res['ssim']:.4f} ate {res['ate']:.4f}; seconds "
+              + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
+              + f"; peak {peak_gb:.1f} GB; {time.perf_counter() - t1:.1f} s")
+        r["test"] = dict(views=seen[0], launches=launches, seconds=secs, peak_gb=peak_gb,
+                         scores={k: res[k] for k in ("psnr", "ssim", "ate")})
+        rec[name] = r
+        if name != "re10k_2view":  # its checkpoint scores ScanNet below
+            shutil.rmtree(out / "ckpts", ignore_errors=True)
+
+    # ---- ScanNet: the indexed scene again in ScanNet's layout, posed ----
+    t1 = time.perf_counter()
+    sv = re10k_scene_views(dev, int(scene.rsplit("_", 1)[1]))
+    root = work / "scannet"
+    name = "scene0000_00"
+    write_scannet_scene(root / "test" / name, sv["frames"], sv["depth"], sv["c2w"], sv["K"])
+    (root / "test_idx.txt").write_text(name + "\n")
+    gen = index_generator.EvaluationIndexGenerator(index_generator.IndexGeneratorConfig(
+        **RE10K_INDEX, output_path=str(work / "scannet_index")))
+    entry = gen.process_scene(name, sv["c2w"], np.tile(sv["K"], (RE10K_FRAMES, 1, 1)))
+    idx2 = gen.save()
+    idx = work / "scannet_index/index_2v_ext.json"
+    ext = extend_index.main(["--scene_dirs", "--index_2v", str(idx2), "--data_root",
+                             str(root / "test"), "--n_context", "2", "--n_target", "3",
+                             "--output", str(idx)])
+    if entry is None or name not in ext:
+        raise AssertionError(f"ScanNet index: {entry}, {ext}")
+    depth_px = float((sv["depth"] > 0).mean())
+    del sv
+    reset_counts()
+    pose_out = work / "scannet_eval"
+    ev = eval_pose.main(["+experiment=re10k_2view", f"checkpointing.load={ckpts['re10k_2view']}",
+                         f"dataset={{scannet_pose: {{name: scannet_pose, roots: [{root}], "
+                         f"view_sampler: {{name: evaluation, index_path: {idx}, "
+                         "num_context_views: 2}}}", f"test.output_path={pose_out}"], device=dev)
+    torch.cuda.synchronize()
+    launches = counts()
+    expect_launches("scannet_pose eval_pose", launches,
+                    dict(zero, flash_attn=base.encoder.backbone.dec_depth))
+    summary = ev.summary()
+    # two views: ATE and the pose AUCs (RPE needs 3, as the JAX package's
+    # camera_eval_metrics)
+    keys = ("ate", "auc@5", "auc@10", "auc@20", "auc@30")
+    bad = [k for k in keys if not math.isfinite(summary.get(k, math.nan))]
+    written = pathlib.Path(f"{pose_out}_pose/pose_metrics.json")
+    if bad or not written.exists():
+        raise AssertionError(f"scannet_pose eval_pose: non-finite {bad}, {written} "
+                             f"{'written' if written.exists() else 'missing'}")
+    phase("experiments", t0, f"[{smi}] ScanNet 2-view pose evaluation: {scene}'s "
+          f"{RE10K_FRAMES} frames written in ScanNet's layout (JPEG q95, 16-bit depth PNGs "
+          f"in mm, {depth_px:.3f} of the pixels with depth), indexed {entry} and extended "
+          f"{ext[name]}; eval_pose of re10k_2view's checkpoint with dataset=scannet_pose: "
+          f"summary {summary}; launches {launches}; {time.perf_counter() - t1:.1f} s")
+    rec["scannet_pose"] = dict(index=ext[name], summary=summary, launches=launches,
+                               depth_share=depth_px)
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def k1_step_launches(cfg, zero: dict) -> dict:
+    """K1's launches in one train step of the parsed root config `cfg`, by
+    its own remat setting: a micro-batch runs each decoder block's joint
+    attention forward once, once more in the backward under remat (either
+    policy recomputes the attention), and K1's backward once a block."""
+    dec = cfg.encoder.backbone.dec_depth
+    micro = max(1, cfg.train.accumulate_grad_batches)
+    forward = (2 if cfg.train.gradient_checkpointing else 1) * dec
+    return dict(zero, flash_attn=forward * micro, flash_attn_bwd=dec * micro)
+
+
+def write_scannet_scene(d: pathlib.Path, frames: np.ndarray, depth_m: np.ndarray,
+                        c2w: np.ndarray, K: np.ndarray):
+    """One scene in ScanNet's layout, as data/dataset_scannet.py reads it:
+    color/<i>.jpg (the port's JPEG encoder at quality 95), depth/<i>.png
+    (16-bit, millimetres, 0 where there is none), extrinsics.npy (c2w) and
+    intrinsic/intrinsic_color.txt (4 x 4, in pixels). frames (V, H, W, 3)
+    uint8, depth_m (V, H, W) metres, c2w (V, 4, 4), K (3, 3) normalized."""
+    from vicasplat_tpu_torch.utils.host_image import encode_jpegs
+    from vicasplat_tpu_torch.utils.image_io import encode_png
+
+    for sub in ("color", "depth", "intrinsic"):
+        (d / sub).mkdir(parents=True, exist_ok=True)
+    for i, jpg in enumerate(encode_jpegs(frames, quality=95)):
+        (d / "color" / f"{i}.jpg").write_bytes(jpg)
+    from concurrent.futures import ThreadPoolExecutor
+
+    mm = np.clip(np.round(np.nan_to_num(depth_m) * 1000.0), 0, 65535).astype(np.uint16)
+    with ThreadPoolExecutor(max_workers=8) as pool:  # zlib releases the GIL
+        list(pool.map(lambda i: (d / "depth" / f"{i}.png").write_bytes(encode_png(mm[i])),
+                      range(len(mm))))
+    np.save(d / "extrinsics.npy", np.asarray(c2w, np.float32))
+    h, w = frames.shape[1:3]
+    K4 = np.eye(4)
+    K4[:3, :3] = K
+    K4[0, :3] *= w
+    K4[1, :3] *= h
+    np.savetxt(d / "intrinsic" / "intrinsic_color.txt", K4)
 
 
 def distill_teacher_leaf(path: str, shape: tuple, seed: int = DISTILL_SEED) -> np.ndarray:
@@ -4955,6 +5347,7 @@ def main():
     serve_trained = serve_trained_phase(dev, smi, reset_counts, counts)
     train_mode = train_mode_phase(dev, smi, reset_counts, counts, zero)
     re10k = re10k_phase(dev, smi, reset_counts, counts, zero)
+    experiments = experiments_phase(dev, smi, reset_counts, counts, zero)
     distill = distill_phase(dev, smi, reset_counts, counts, zero)
     parallel = parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, train)
 
@@ -5016,6 +5409,13 @@ def main():
                  # the re10k_8view train step from chunks, and its test mode
                  "re10k_launches": {"train_step": re10k["train"]["steps"][-1]["launches"],
                                     "test": re10k["test"]["launches"]},
+                 # the three experiment configs' train steps and test modes, and
+                 # ScanNet's 2-view eval_pose
+                 "experiments_launches": dict(
+                     {name: {"train_step": experiments[name]["steps"][-1]["launches"],
+                             "test": experiments[name]["test"]["launches"]}
+                      for name in EXPERIMENTS},
+                     scannet_pose=experiments["scannet_pose"]["launches"]),
                  # the distill experiment's two steps, distill_only and distill
                  "distill_launches": [st["launches"] for st in distill["train"]["steps"]],
                  # K1 at the distill step's shape, on its own inputs
@@ -5041,6 +5441,7 @@ def main():
         "serve_trained": serve_trained,
         "train_mode": train_mode,
         "re10k": re10k,
+        "experiments": experiments,
         "distill": distill,
         "parallel": parallel,
         "wall_s": time.perf_counter() - t_start}), flush=True)

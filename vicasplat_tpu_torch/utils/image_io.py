@@ -28,18 +28,24 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(pixels: np.ndarray) -> bytes:
-    """(H, W, 3) or (H, W) uint8 -> PNG bytes."""
+    """(H, W, 3) or (H, W) uint8, or (H, W) uint16 (16-bit grey, as depth
+    maps are stored) -> PNG bytes."""
     if pixels.ndim == 3 and pixels.shape[-1] == 1:
         pixels = pixels[..., 0]
-    if pixels.dtype != np.uint8 or pixels.ndim not in (2, 3) or (
-            pixels.ndim == 3 and pixels.shape[-1] != 3):
-        raise ValueError(f"expected (H, W[, 3]) uint8, got {pixels.shape} {pixels.dtype}")
+    grey16 = pixels.dtype == np.uint16 and pixels.ndim == 2
+    if not grey16 and (pixels.dtype != np.uint8 or pixels.ndim not in (2, 3) or (
+            pixels.ndim == 3 and pixels.shape[-1] != 3)):
+        raise ValueError(f"expected (H, W[, 3]) uint8 or (H, W) uint16, got "
+                         f"{pixels.shape} {pixels.dtype}")
     h, w = pixels.shape[:2]
     color_type = 2 if pixels.ndim == 3 else 0
+    if grey16:  # PNG samples are big-endian
+        pixels = pixels.astype(">u2").view(np.uint8)
     rows = np.ascontiguousarray(pixels).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
     return (b"\x89PNG\r\n\x1a\n"
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16 if grey16 else 8,
+                                          color_type, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
 
 
