@@ -208,12 +208,16 @@ Phases, each printing lines with their seconds:
             micro-batches only where the memory reckoning
             (experiment_reckoning: parallel/memory_proof.py's state and
             activations fitted to two measured peaks) and a measured
-            out-of-memory say so: 1 train step (host ms, the device span
+            out-of-memory say so: 2 train steps (host ms, the device span
             by CUDA events) with a finite loss, the NaN guard at 0 and K1's
             launches by the config's own remat setting (k1_step_launches:
             dec_depth forwards without remat, twice that with, dec_depth
             backwards, a micro-batch), the K1 shapes, step ms, peak against
-            the reckoning; then its test mode on re10k's first indexed
+            the reckoning; the second step's update (the first runs at lr
+            0) moves every lr-multiplier group within AdamW's bound
+            (update_record); K1 forward and backward held to their plain
+            versions on the run's first backward's own inputs (FLASH_TOL,
+            the k1-bwd rule); then its test mode on re10k's first indexed
             scene with that checkpoint, 10 alignment steps: re10k_2view and
             acid_2view on the 2-view index in the default configuration (K1
             12), re10k_4view on a 4-view extend_index in the accelerator
@@ -462,13 +466,14 @@ RE10K_PHASE_ALIGN_STEPS = 1
 RE10K_PSNR_MIN = 40.0
 # experiments: the public experiment configs that only the JAX package had
 # trained and scored, each trained at full width from re10k's chunks at its
-# own global batch, EXPERIMENT_STEPS steps, then its test mode on re10k's
-# first indexed scene with the cut alignment steps (RE10K_ALIGN_STEPS). The
-# step's device time is the span of CUDA events around it: tracing its
-# kernels (tools/experiments_trace.py) held a step up for 21-57 s against
-# 6-10 s untraced (H100 80GB HBM3)
+# own global batch, EXPERIMENT_STEPS steps (the first at lr 0, so the
+# checkpoint the test modes score has taken one update), then its test mode
+# on re10k's first indexed scene with the cut alignment steps
+# (RE10K_ALIGN_STEPS). The step's device time is the span of CUDA events
+# around it: tracing its kernels (tools/experiments_trace.py) held a step
+# up for 21-57 s against 6-10 s untraced (H100 80GB HBM3)
 EXPERIMENTS = ("re10k_2view", "acid_2view", "re10k_4view")
-EXPERIMENT_STEPS = 1
+EXPERIMENT_STEPS = 2
 # the memory reckoning's activations (GB a micro-batch's context frame and
 # target view at 256^2, bf16): fitted to two peaks measured on an H100
 # 80GB HBM3, the flagship step at 2 x (8 + 12) with remat "dots" (67.9 GB)
@@ -1525,21 +1530,6 @@ def profile_window(fn):
     return wall_ms, device_ms, ops[:8], kernels
 
 
-def device_kernel_ms(fn):
-    """(fn(), the device ms of the kernels it ran): torch.profiler tracing
-    the card alone (tracing the host's operators too held a full-width
-    train step up for 50-120 s, the card alone for 21-57 s; H100 80GB
-    HBM3)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA) / 1e3
-
-
 def small_scene():
     """1,000 random splats (SH degree 4) and 2 views of 96 x 128."""
     from vicasplat_tpu_torch.ops.rasterize.projection import cov6_from_scale_rot
@@ -2455,13 +2445,11 @@ def wandb_core_children():
     return kids
 
 
-def train_mode_run(dev, argv, reset_counts, counts, keep_batches=(), kernel_time=False):
+def train_mode_run(dev, argv, reset_counts, counts, keep_batches=()):
     """vicasplat_tpu_torch.main.main(argv) in train mode, with each step's
-    kernel launches, seconds (synchronized), device span (CUDA events around
-    the step), NaN-guard count and scene ids, the batches of the steps in
-    `keep_batches` (cloned on the card), and with `kernel_time` each step's
-    device kernel ms (device_kernel_ms; its seconds then hold the tracer's
-    cost); checks that the loader's threads are gone afterwards."""
+    kernel launches, seconds (synchronized), NaN-guard count and scene ids,
+    and the batches of the steps in `keep_batches` (cloned on the card);
+    checks that the loader's threads are gone afterwards."""
     import threading
 
     from vicasplat_tpu_torch import main as tmain
@@ -2484,18 +2472,11 @@ def train_mode_run(dev, argv, reset_counts, counts, keep_batches=(), kernel_time
             torch.cuda.synchronize()
             peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
             torch.cuda.reset_peak_memory_stats()
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t = time.perf_counter()
-            e0.record()
-            if kernel_time:
-                logs, kernel_ms = device_kernel_ms(lambda: step(batch, global_step, phase))
-            else:
-                logs, kernel_ms = step(batch, global_step, phase), None
-            e1.record()
+            logs = step(batch, global_step, phase)
             torch.cuda.synchronize()
             after = counts()
-            steps.append(dict(step=global_step, phase=phase, kernel_ms=kernel_ms,
-                              device_span_ms=e0.elapsed_time(e1),
+            steps.append(dict(step=global_step, phase=phase,
                               ms=(time.perf_counter() - t) * 1e3,
                               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                               nonfinite=int(step.nonfinite),
@@ -3419,15 +3400,12 @@ def experiment_splits(cfg) -> list:
 
 
 def re10k_scene_views(dev, s: int) -> dict:
-    """The synthetic generator's scene s at RE10K_HW, every frame rendered
-    on the card in chunks of 16 as the generator renders them
-    (data/synthetic_scenes.render_scene_frames), with square pixels (the
-    vertical focal length scaled by W / H, as RE10K's cameras have):
-    uint8 frames, the expected depth (metres, 0 where the alpha is under
-    0.5), c2w and the normalized K."""
+    """The synthetic generator's scene s at RE10K_HW, rendered on the card in
+    chunks of 16 frames (data/synthetic_scenes.render_scene_views), with
+    square pixels (the vertical focal length scaled by W / H, as RE10K's
+    cameras have): uint8 frames, the expected depth (metres, 0 where the
+    alpha is under 0.5), c2w and the normalized K."""
     from vicasplat_tpu_torch.data import synthetic_scenes as scenes
-    from vicasplat_tpu_torch.ops.rasterize import RasterizeConfig, render
-    from vicasplat_tpu_torch.ops.rasterize.projection import cov6_from_scale_rot
     from vicasplat_tpu_torch.utils.image_io import to_uint8
 
     cfg = scenes.SyntheticScenesConfig(input_image_shape=RE10K_HW, n_frames=RE10K_FRAMES,
@@ -3435,32 +3413,125 @@ def re10k_scene_views(dev, s: int) -> dict:
     K = scenes.intrinsics_for(cfg)
     K[1, 1] *= RE10K_HW[1] / RE10K_HW[0]
     rng = scenes.scene_rng(s, cfg)
-    g = {k: torch.from_numpy(v).to(dev) for k, v in scenes.scene_gaussians(rng, cfg).items()}
+    gauss = scenes.scene_gaussians(rng, cfg)
     poses = scenes.scene_trajectory(rng, cfg)
     frames, depths = [], []
-    with torch.no_grad():
-        for i in range(0, RE10K_FRAMES, 16):
-            p = torch.from_numpy(poses[i:i + 16]).to(dev)
-            color, depth, alpha = render(
-                g["means"], cov6_from_scale_rot(g["scales"], g["rotations"]), g["harmonics"],
-                g["opacities"], p, torch.from_numpy(K).to(dev).expand(len(p), 3, 3), RE10K_HW,
-                torch.zeros(3, device=dev), 0, cfg=RasterizeConfig(max_per_tile=256))
-            frames.append(to_uint8(color.clamp(0.0, 1.0).cpu().numpy()))
-            depths.append(torch.where(alpha > 0.5, depth / alpha.clamp(min=1e-6),
-                                      torch.zeros_like(depth)).cpu().numpy())
+    for i in range(0, RE10K_FRAMES, 16):
+        color, depth = scenes.render_scene_views(gauss, poses[i:i + 16], K, RE10K_HW, dev)
+        frames.append(to_uint8(color))
+        depths.append(depth)
     return dict(frames=np.concatenate(frames), depth=np.concatenate(depths), c2w=poses, K=K)
 
 
-def experiments_phase(dev, smi, reset_counts, counts, zero, kernel_time=False):
-    """Phase experiments (see the module's docstring); with `kernel_time`
-    each train step also traced for its device kernel ms
-    (tools/experiments_trace.py: the tracer holds a step up for 20-60 s)."""
+def k1_bwd_keeper(seen: list):
+    """K1's autograd backward (_FlashAttention.backward) that also keeps
+    its first call's own inputs (q, k, v, o, lse, dO) in `seen`, unpacking
+    the saved tensors once, as a checkpointed block's backward allows."""
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        if not seen:
+            seen.append(tuple(x.detach().clone() for x in (q, k, v, o, lse, do)))
+        return torch.ops.vicasplat.flash_attn_bwd(q, k, v, o, lse, do)
+    return staticmethod(backward)
+
+
+def split_train_run(dev, what, t0, splits, prepare, batch, reset_counts, counts):
+    """train_mode_run(prepare(m)) for each micro-batch count m of `splits`
+    in turn until a step of batch `batch` in m micro-batches fits on the
+    card: (m, its run, [{micro, peak_gb}] of the counts that ran out of
+    memory). `prepare` clears what a try left and returns its argv."""
+    import gc
+
+    tried = []
+    for m in splits:
+        argv = prepare(m)
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            return m, train_mode_run(dev, argv, reset_counts, counts), tried
+        except torch.cuda.OutOfMemoryError:
+            tried.append(dict(micro=m, peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+            phase(what, t0, f"split: {m} micro-batches of {batch // m}: out of memory, peak "
+                  f"{tried[-1]['peak_gb']:.1f} GB")
+    raise AssertionError(f"{what}: the step fits in no split: {tried}")
+
+
+def watched_train_step(make_step, watch: dict, last: int):
+    """training.make_train_step's signature around `make_step`: each step's
+    device span (CUDA events around it, ms) is appended to
+    watch["span_ms"], and global step `last`'s update goes to
+    watch["update"] (update_record)."""
+    def make(cfg, model, optimizer, lpips_fn=None, teacher_fn=None):
+        step = make_step(cfg, model, optimizer, lpips_fn, teacher_fn)
+
+        def run(batch, global_step, phase="full"):
+            before = None
+            if global_step == last:
+                lr = optimizer.schedule(optimizer.count)
+                before = {n: p.detach().to("cpu", copy=True)
+                          for n, p in optimizer.params.items()}
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            logs = step(batch, global_step, phase)
+            e1.record()
+            run.nonfinite = step.nonfinite
+            torch.cuda.synchronize()
+            watch["span_ms"].append(e0.elapsed_time(e1))
+            if before is not None:
+                watch["update"] = update_record(optimizer, before, lr)
+            return logs
+        return run
+    return make
+
+
+def update_record(optimizer, before: dict, lr: float) -> dict:
+    """{lr multiplier: its parameters' update} of the AdamW `optimizer`'s
+    last step at learning rate `lr` from `before` ({name: the parameter on
+    the host before the step}): tensors, tensors that moved, and the
+    largest |update| / (lr * multiplier) beside its bound. AdamW's
+    normalized step m^/sqrt(v^) at count c is at most
+    sqrt(sum_i a_i^2 / w_i) sqrt(1 - b2^c) / (1 - b1^c) an entry
+    (Cauchy-Schwarz on the moments' weights a_i = (1 - b1) b1^(c-i),
+    w_i = (1 - b2) b2^(c-i); 1.0004 at count 2 of betas (0.9, 0.95)),
+    1 % more for a bfloat16 first moment; weight decay adds decay * |p|,
+    and float32 rounding the spacing at the group's largest |p|. Raises
+    unless every group moved and its largest ratio lies in [0.25, bound]:
+    the entries whose two gradients share a sign take at least 0.5 of it."""
+    b1, b2 = optimizer.cfg.betas
+    c = optimizer.count
+    adam = (math.sqrt(sum(((1 - b1) * b1 ** (c - i)) ** 2 / ((1 - b2) * b2 ** (c - i))
+                          for i in range(1, c + 1)))
+            * math.sqrt(1 - b2 ** c) / (1 - b1 ** c))
+    groups = {}
+    for n, p in optimizer.params.items():
+        m = optimizer.mult[n]
+        old = before[n].to(p.device)
+        step = (p.detach() - old).abs().max().item()
+        g = groups.setdefault(m, dict(tensors=0, moved=0, ratio=0.0, p_max=0.0))
+        g["tensors"] += 1
+        g["moved"] += step > 0
+        g["ratio"] = max(g["ratio"], step / (lr * m))
+        g["p_max"] = max(g["p_max"], old.abs().max().item())
+    for m, g in groups.items():
+        g["bound"] = (1.01 * adam + optimizer.cfg.weight_decay * g["p_max"]
+                      + float(np.spacing(np.float32(g["p_max"]))) / (lr * m))
+    bad = {m: g for m, g in groups.items()
+           if not (g["moved"] and 0.25 <= g["ratio"] <= g["bound"])}
+    if bad:
+        raise AssertionError(f"the update at lr {lr}: groups {bad}")
+    return dict(lr=lr, count=c, adam_bound=adam, groups=groups)
+
+
+def experiments_phase(dev, smi, reset_counts, counts, zero):
+    """Phase experiments (see the module's docstring)."""
     import gc
     import shutil
 
-    from vicasplat_tpu_torch import eval_pose
+    from vicasplat_tpu_torch import eval_pose, training
     from vicasplat_tpu_torch import main as tmain
     from vicasplat_tpu_torch.evaluation import extend_index, index_generator, nvs_eval
+    from vicasplat_tpu_torch.kernels import flash_attn
     from vicasplat_tpu_torch.models import vicanet
     from vicasplat_tpu_torch.utils.config import parse_cli
 
@@ -3478,7 +3549,7 @@ def experiments_phase(dev, smi, reset_counts, counts, zero, kernel_time=False):
                                 "--output", str(work / "index_4v.json")])
     if scene not in index4:
         raise AssertionError(f"the 4-view extension lost {scene}: {index4}")
-    shapes = []
+    shapes, seen = [], []
     attend = vicanet.flash_attention
 
     def spy_k1(q, k, v, *a, **kw):  # K1's shapes, once each
@@ -3498,35 +3569,40 @@ def experiments_phase(dev, smi, reset_counts, counts, zero, kernel_time=False):
         # so a pass must hold a whole batch
         roots = "[" + ",".join([str(src / "re10k")] * max(1, batch // RE10K_SCENES)) + "]"
         out = work / name
-        splits, tried = experiment_splits(base), []
-        for micro in splits:
-            argv = [f"+experiment={name}", "mode=train", f"dataset.{ds}.roots={roots}",
-                    f"trainer.max_steps={EXPERIMENT_STEPS}", f"train.accumulate_grad_batches={micro}",
+        splits = experiment_splits(base)
+        watch = {}
+
+        def train_argv(micro):
+            return [f"+experiment={name}", "mode=train", f"dataset.{ds}.roots={roots}",
+                    f"trainer.max_steps={EXPERIMENT_STEPS}",
+                    f"train.accumulate_grad_batches={micro}",
                     "train.print_log_every_n_steps=1", "trainer.val_check_interval=0",
                     f"output_dir={out}", f"checkpointing.output_dir={out}/ckpts",
                     "wandb.mode=disabled"]
-            cfg = parse_cli(argv)
-            reckoned = experiment_reckoning(cfg, micro)
+
+        def prepare(micro):
             shutil.rmtree(out, ignore_errors=True)
-            gc.collect()
-            torch.cuda.empty_cache()
             shapes.clear()
-            try:
-                with mock.patch.object(vicanet, "flash_attention", spy_k1):
-                    tr = train_mode_run(dev, argv, reset_counts, counts,
-                                        kernel_time=kernel_time)
-                break
-            except torch.cuda.OutOfMemoryError:
-                tried.append(dict(micro=micro, reckoned_gb=reckoned["total_gb"],
-                                  peak_gb=torch.cuda.max_memory_allocated() / 1e9))
-                phase("experiments", t0, f"{name}: {micro} micro-batches of {batch // micro}: "
-                      f"out of memory at {tried[-1]['peak_gb']:.1f} GB (reckoned "
-                      f"{reckoned['total_gb']:.1f} GB)")
-        else:
-            raise AssertionError(f"{name}: the step fits in no split: {tried}")
+            seen.clear()
+            watch.update(span_ms=[], update=None)
+            return train_argv(micro)
+
+        with mock.patch.object(vicanet, "flash_attention", spy_k1), \
+                mock.patch.object(flash_attn._FlashAttention, "backward",
+                                  k1_bwd_keeper(seen)), \
+                mock.patch.object(training, "make_train_step", watched_train_step(
+                    training.make_train_step, watch, EXPERIMENT_STEPS - 1)):
+            micro, tr, tried = split_train_run(dev, "experiments", t0, splits, prepare, batch,
+                                               reset_counts, counts)
+        cfg = parse_cli(train_argv(micro))
+        reckoned = experiment_reckoning(cfg, micro)
         want = k1_step_launches(cfg, zero)
         for st in tr["steps"]:
             expect_launches(f"{name} train step {st['step']}", st["launches"], want)
+        upd = watch["update"]
+        if upd is None or len(watch["span_ms"]) != len(tr["steps"]):
+            raise AssertionError(f"{name}: {len(watch['span_ms'])} device spans for "
+                                 f"{len(tr['steps'])} steps, update {upd}")
         ckpt = out / "ckpts" / f"step_{EXPERIMENT_STEPS:08d}.npz"
         if not ckpt.exists():
             raise AssertionError(f"no checkpoint {ckpt}")
@@ -3545,10 +3621,12 @@ def experiments_phase(dev, smi, reset_counts, counts, zero, kernel_time=False):
               + ", ".join(f"{st['loss']:.5f}" for st in tr["steps"])
               + f"; nan guard {[st['nonfinite'] for st in tr['steps']]}; step ms (host) "
               + ", ".join(f"{st['ms']:.1f}" for st in tr["steps"])
-              + "; device span (CUDA events) " + ", ".join(
-                  f"{st['device_span_ms']:.1f}" for st in tr["steps"])
-              + ("" if not kernel_time else "; device kernels (traced) " + ", ".join(
-                  f"{st['kernel_ms']:.1f}" for st in tr["steps"]))
+              + "; device span (CUDA events) " + ", ".join(f"{x:.1f}" for x in watch["span_ms"])
+              + f"; step {EXPERIMENT_STEPS - 1}'s update at lr {upd['lr']:.3e}, by lr "
+              "multiplier: " + "; ".join(
+                  f"{m}: {g['moved']} of {g['tensors']} tensors moved, largest |update| / "
+                  f"(lr * mult) {g['ratio']:.4f} (bound {g['bound']:.4f})"
+                  for m, g in sorted(upd["groups"].items()))
               + f"; launches a step {last['launches']} (want {want}); K1 shapes (q, k) "
               f"{shapes}; peak "
               f"{tr['peak_gb']:.2f} GB against reckoned {reckoned['total_gb']:.2f} GB "
@@ -3557,9 +3635,22 @@ def experiments_phase(dev, smi, reset_counts, counts, zero, kernel_time=False):
               f"{time.perf_counter() - t1:.1f} s")
         r = dict(batch=batch, micro=micro, out_of_memory=tried, reckoned=reckoned,
                  peak_gb=tr["peak_gb"], wall_s=tr["wall_s"], k1_shapes=list(shapes),
-                 want=want, steps=[{k: v for k, v in st.items() if k != "scenes"}
-                                   for st in tr["steps"]])
+                 want=want, update=upd, device_span_ms=watch["span_ms"],
+                 steps=[{k: v for k, v in st.items() if k != "scenes"}
+                        for st in tr["steps"]])
         del tr
+        # K1 at this config's own shape (its last q and k tiles partly
+        # filled), forward and backward, on the run's first backward's inputs
+        q, k, v, o, lse, do = seen.pop()
+        r["k1"] = flash_phase(dev, {name: [(q, k, v)]})[name]
+        r["k1_bwd"] = k1_bwd_held(f"K1 backward on {name}'s step inputs",
+                                  q, k, v, o, lse, do)["errors"]
+        phase("experiments", t0, f"{name}: K1 on the step's own inputs, {r['k1']['shape']}: "
+              f"forward max abs err {r['k1']['max_abs_err']:.3e} (tol {FLASH_TOL}); backward "
+              "relative errors " + ", ".join(
+                  f"{nm} {e['rel']:.2e} (tol {2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})"
+                  for nm, e in r["k1_bwd"].items()))
+        del q, k, v, o, lse, do
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3835,7 +3926,6 @@ def distill_phase(dev, smi, reset_counts, counts, zero):
     import shutil
 
     from vicasplat_tpu_torch.kernels import flash_attn
-    from vicasplat_tpu_torch.kernels.flash_attn import flash_attention_backward
     from vicasplat_tpu_torch.models import VicaNetConfig, dust3r
     from vicasplat_tpu_torch.models.dust3r import Dust3RConfig, init_dust3r, make_teacher_fn
     from vicasplat_tpu_torch.utils.ckpt_convert import export_dust3r_state_dict
@@ -3877,42 +3967,25 @@ def distill_phase(dev, smi, reset_counts, counts, zero):
         loaded.append({k: model.state_dict()[k].float().cpu() for k in probe})
         return make_teacher_fn(model, dtype)
 
-    seen = []
-
-    def spy(ctx, do):  # K1's backward on the first call's own inputs
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.to(q.dtype).contiguous()
-        if not seen:
-            seen.append(tuple(x.detach().clone() for x in (q, k, v, o, lse, do)))
-        return flash_attention_backward(q, k, v, o, lse, do)
-
+    seen = []  # K1's backward on the first call's own inputs
     roots = "[" + ",".join([str(chunks)] * DISTILL_ROOT_COPIES) + "]"
-    cuts = []
-    for A in DISTILL_ACCUMULATE:
+
+    def prepare(A):
         shutil.rmtree(out / "run", ignore_errors=True)
-        argv = ["+experiment=distill", "mode=train", f"dataset.re10k.roots={roots}",
+        seen.clear()
+        return ["+experiment=distill", "mode=train", f"dataset.re10k.roots={roots}",
                 f"trainer.max_steps={DISTILL_STEPS}", "train.distill_only_steps=1",
                 "train.distill_max_steps=1", f"train.accumulate_grad_batches={A}",
                 "encoder.dpt_stabilize=true",
                 "train.print_log_every_n_steps=1", "trainer.val_check_interval=0",
                 f"output_dir={out}/run", f"checkpointing.output_dir={out}/run/ckpts",
                 "wandb.mode=disabled"]
-        gc.collect()
-        torch.cuda.empty_cache()
-        try:
-            seen.clear()
-            with mock.patch.dict(os.environ, {"DISTILLER_CKPT": str(ckpt)}), \
-                    mock.patch.object(dust3r, "make_teacher_fn", keep_teacher), \
-                    mock.patch.object(flash_attn._FlashAttention, "backward",
-                                      staticmethod(spy)):
-                tr = train_mode_run(dev, argv, reset_counts, counts)
-            break
-        except torch.cuda.OutOfMemoryError:
-            cuts.append(f"{A} micro-batches of {24 // A}: out of memory, peak "
-                        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-            phase("distill", t0, "split: " + cuts[-1])
-    else:
-        raise AssertionError(f"the distill step fits in no split: {cuts}")
+
+    with mock.patch.dict(os.environ, {"DISTILLER_CKPT": str(ckpt)}), \
+            mock.patch.object(dust3r, "make_teacher_fn", keep_teacher), \
+            mock.patch.object(flash_attn._FlashAttention, "backward", k1_bwd_keeper(seen)):
+        A, tr, cuts = split_train_run(dev, "distill", t0, DISTILL_ACCUMULATE, prepare, 24,
+                                      reset_counts, counts)
     if not loaded or any(not torch.equal(loaded[-1][k], probe[k]) for k in probe):
         raise AssertionError("the train mode's teacher is not the checkpoint's")
     steps = tr["steps"]
@@ -3934,7 +4007,7 @@ def distill_phase(dev, smi, reset_counts, counts, zero):
     phase("distill", t0, f"[{smi}] distill experiment at full width from re10k's chunks, "
           f"the teacher from {ckpt.name} through the converter: batch 24 (2 context, 4 "
           f"targets, 256^2) as {A} micro-batches of {24 // A}; splits that ran out of "
-          f"memory {cuts or 'none'}; scenes {steps[0]['scenes']}; run "
+          f"memory {[c['micro'] for c in cuts] or 'none'}; scenes {steps[0]['scenes']}; run "
           f"{tr['wall_s']:.1f} s, peak {tr['peak_gb']:.1f} GB")
     rec["train"] = dict(accumulate=A, splits=cuts, wall_s=tr["wall_s"], peak_gb=tr["peak_gb"],
                         teacher_parameters=n_teacher,

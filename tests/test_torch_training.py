@@ -117,14 +117,11 @@ def _port_grads(model, template):
          for n, p in model.named_parameters()}, template)
 
 
-def _assert_grads(tgrads, jgrads, allowance=None):
-    """Each gradient within GRAD_TOL of its tensor's largest entry, plus
-    `allowance` (a JAX-shaped tree of absolute widenings) where given."""
+def _assert_grads(tgrads, jgrads):
     for path, j in jax.tree_util.tree_flatten_with_path(jgrads)[0]:
         j = np.asarray(j)
-        extra = 0.0 if allowance is None else float(np.max(_leaf(allowance, path)))
         np.testing.assert_allclose(_leaf(tgrads, path), j, rtol=0,
-                                   atol=GRAD_TOL * np.abs(j).max() + 1e-12 + extra,
+                                   atol=GRAD_TOL * np.abs(j).max() + 1e-12,
                                    err_msg=jax.tree_util.keystr(path))
 
 
@@ -169,7 +166,7 @@ def _jax_steps(jcfg, params, batch, n, start=0):
     """n JAX steps from global step `start`: [(params, grads, logs)] after
     each."""
     opt = _KeepGrads(make_optimizer(params, jcfg.optimizer))
-    state = opt.init(params)
+    state = jax.jit(opt.init)(params)
     step = jax.jit(j_make_train_step(jcfg, opt))
     out = []
     for i in range(start, start + n):
@@ -183,13 +180,13 @@ def _check_steps(jcfg, B, n):
     check_steps_from(jcfg, params, batch, tcfg, model, AdamW(model, tcfg.optimizer), n)
 
 
-def check_steps_from(jcfg, params, batch, tcfg, model, opt, n, start=0,
-                     allowance=None):
+def check_steps_from(jcfg, params, batch, tcfg, model, opt, n, start=0, ref=None):
     """n steps of the port's make_train_step (the model holding `params`,
     its optimizer `opt`) against JAX's from global step `start` on the
-    same batch: the logs, every gradient (widened by `allowance`, see
-    _assert_grads) and every updated parameter."""
-    ref = _jax_steps(jcfg, params, batch, n, start)
+    same batch (`ref`, _jax_steps' result, where it is already taken): the
+    logs, every gradient and every updated parameter."""
+    ref = ref if ref is not None else _jax_steps(jcfg, params, batch, n, start)
+    assert len(ref) == n
     step = make_train_step(tcfg, model, opt)
     tgrads, jgrads = [], []
     for i, (jparams, jg, jlogs) in enumerate(ref):
@@ -206,7 +203,7 @@ def check_steps_from(jcfg, params, batch, tcfg, model, opt, n, start=0,
         tgrads.append((_port_grads(model, jg),
                        min(1.0, clip / float(logs["grad_norm"]))))
         jgrads.append((jg, min(1.0, clip / jlogs["grad_norm"])))
-        _assert_grads(tgrads[-1][0], jg, allowance)
+        _assert_grads(tgrads[-1][0], jg)
         _assert_params(model, jparams, tgrads, jgrads, opt.mult,
                        opt.schedule(start + i), tcfg.optimizer.weight_decay)
 

@@ -3,7 +3,8 @@ vicasplat_tpu/data/synthetic_scenes.py): clustered anisotropic Gaussians in
 front of a backdrop plane that spans the frustum, and smooth camera
 trajectories, made with numpy from a seed (the same seed gives the same
 arrays, bit for bit, as the JAX package's generator); golden frames
-rendered by the port's rasterizer (`render_scene_frames`); and the
+rendered by the port's rasterizer (`render_scene_frames`, with their
+depth `render_scene_views`); and the
 stage-split dataset of the `synthetic` experiment (`DatasetSyntheticScenes`),
 whose examples follow the RE10K loader's contract: frame-0-relative
 cameras scaled to a context baseline of 1, and near and far divided by the
@@ -148,18 +149,26 @@ def render_scene_frames(gauss: dict, poses: np.ndarray, K: np.ndarray,
     """Golden frames (T, H, W, 3) in [0, 1] from the port's rasterizer on
     `device` (JAX `render_scene_frames`, `:151-185`: max_per_tile 256, a
     black background, SH degree 0, colour clipped to [0, 1])."""
+    return render_scene_views(gauss, poses, K, image_shape, device)[0]
+
+
+def render_scene_views(gauss: dict, poses: np.ndarray, K: np.ndarray,
+                       image_shape: tuple, device="cpu") -> tuple:
+    """`render_scene_frames`'s frames and the expected depth (T, H, W) in
+    the cameras' units, 0 where the accumulated alpha is under 0.5."""
     from ..ops.rasterize import RasterizeConfig, render
     from ..ops.rasterize.projection import cov6_from_scale_rot
 
     g = {k: torch.from_numpy(v).to(device) for k, v in gauss.items()}
     T = poses.shape[0]
     with torch.no_grad():
-        color, _, _ = render(
+        color, depth, alpha = render(
             g["means"], cov6_from_scale_rot(g["scales"], g["rotations"]),
             g["harmonics"], g["opacities"], torch.from_numpy(poses).to(device),
             torch.from_numpy(K).to(device).expand(T, 3, 3), tuple(image_shape),
             torch.zeros(3, device=device), 0, cfg=RasterizeConfig(max_per_tile=256))
-    return color.clamp(0.0, 1.0).cpu().numpy()
+        depth = torch.where(alpha > 0.5, depth / alpha.clamp(min=1e-6), torch.zeros_like(depth))
+    return color.clamp(0.0, 1.0).cpu().numpy(), depth.cpu().numpy()
 
 
 def generate_scene(scene_id: int, cfg: SyntheticScenesConfig, device="cpu") -> dict:
