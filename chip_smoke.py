@@ -286,7 +286,8 @@ Phases, each printing lines with their seconds:
             the latter the oracle gives each splat the tiles of its 3-sigma
             rect, as the tiled render does), and on the covering scene (the
             gaps printed); the memory reckoning of
-            parallel/memory_proof.py (dp8, fsdp8, pp4xdp2) beside the peak of
+            parallel/memory_proof.py (dp8, fsdp8, pp4xdp2, and the four
+            cards' dp4, fsdp4, pp4) beside the peak of
             the world-1 flagship step at batch 1 x (8 + 12).
 Then a JSON line of kernels, the nvidia-smi line, and the result line.
 Float32 convolutions run in full float32 (cudnn.allow_tf32 = False), since
@@ -312,6 +313,27 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+# the tolerances and the train-step records shared with the four-card run
+from vicasplat_tpu_torch.diagnostics.holds import (
+    EXIT_T,
+    F32_TOL,
+    FLASH_BWD_FLOOR,
+    FLASH_TOL,
+    RENDER_TOL,
+    STEP_TOL,
+    TAIL_TOL,
+    TRAIN_LOSS_TOL,
+    flash_bwd_errors,
+    grad_group,
+    host_copy,
+    k1_bwd_held,
+    rel,
+    route_gaps,
+    step_record,
+    update_gaps,
+    update_record,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # the repository's trained checkpoint, and the JAX package's scores of it
@@ -367,16 +389,6 @@ FLAGSHIP_ALIGN_STEPS = 10
 # (tools/jax_train_reference.py), and the steps train-mode runs
 TRAIN_REF = "vicasplat_tpu_torch/training/reference_synthetic_pose_train.json"
 TRAIN_MODE_STEPS = 4
-# each step's logged scalars against the JAX reference's: the loss, its
-# mse and camera terms and the gradient's norm before clipping relative,
-# the PSNR in dB. The same batches (scene ids checked equal), frames from
-# two rasterizers (within 2e-4), bf16 forwards and backwards on two
-# devices. The port on the CPU was 0.46 % from JAX in loss and 0.013 dB in
-# PSNR (its camera loss 1.3 %), a few steps from the same float32 weights;
-# on the H100 the largest gaps over the 4 steps were loss 0.48 %, mse
-# 0.16 %, camera 1.19 % and grad_norm 0.65 %, so about three times those
-TRAIN_LOSS_TOL = {"loss": 2e-2, "mse": 5e-3, "camera": 4e-2, "grad_norm": 2e-2,
-                  "psnr": 0.1}
 # pose-alignment steps of the test mode on the train mode's snapshot
 TRAIN_TEST_ALIGN_STEPS = 10
 # the thread wandb keeps for the process from its first run until
@@ -384,34 +396,9 @@ TRAIN_TEST_ALIGN_STEPS = 10
 # wandb-core service process
 WANDB_SERVICE_THREAD = "wandb-"
 
-# bf16 kernel output against the float32 plain version: a half ulp of bf16
-# is 2^-9 relative, and P enters the second product rounded to bf16
-FLASH_TOL = 2e-2
-# the float32 rasterizer on the card against the CPU: exp/log1p and matmul
-# sums in another order, far below one splat's 1/255 contribution
-RENDER_TOL = 1e-4
-# K2 stops a pixel once its transmittance is under 1e-4, its plain version
-# never: what it drops is at most 1e-4 of a splat's feature
-EXIT_T = 1e-4
-# K3 against its float32 plain version with the same roundings, relative
-# to the largest output: the two float32 sums run in other orders, so an
-# output (or an element of h) near a bf16 rounding midpoint may round one
-# ulp apart, at most 2^-7 = 7.8e-3 of the largest output
-TAIL_TOL = 1e-2
 # gradients through K2's recompute against the plain compositing: the same
 # function summed in other orders, relative to the largest entry
 GRAD_TOL = 1e-3
-# K1's backward against the float32 plain backward, each of dQ, dK, dV
-# relative to its largest entry: at most twice SDPA's bf16 backward error
-# against the same reference, plus this floor (P and dS enter the products
-# rounded to bf16, 2^-9 relative)
-FLASH_BWD_FLOOR = 2e-3
-# K1's float32 route against the float32 plain versions, relative to each
-# tensor's largest entry: the kernels take each float32 product as three
-# TF32 products (within about 2^-22 of it) and sum in float32 in other
-# orders over up to 2,064 keys, and their exp2 is within 2 ulp; a single
-# TF32 product would miss it (tests/test_torch_flash_f32_split.py)
-F32_TOL = 1e-4
 # the _tiny_smoke widths in float32 on the card against the CPU, relative to
 # each output's largest entry: float32 on both sides, summed in other orders
 # through 6 blocks, the DPT heads and the exp map of the means
@@ -532,11 +519,6 @@ MOE_TARGETS = 12
 # of its 200-step warm-up where the learning rate is not 0
 DDP_BATCH = 8
 DDP_STEP = 100
-# a step against the same step on another route: the loss is the same
-# arithmetic (relative); the gradients' norms and each parameter group's
-# norm within FLASH_BWD_FLOOR (the k1-bwd rule's floor: the render's
-# backward adds by atomics, in another order each run)
-STEP_TOL = 1e-6
 # training under SP, TP and EP. At world 1, step 0 of the flagship (lr 0,
 # gradients only) against the train phase's and the MoE flagship's first
 # step under EP against the MoE train step's, by the rule above. At world 2,
@@ -615,6 +597,17 @@ def row_line(name, t0, label, r, tol):
           f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
           + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
           + f" bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+
+
+def own_rounding(held: dict) -> dict:
+    """k1_bwd_held's errors, with dQ against its own rounding as `dq_own`."""
+    return dict(held["errors"], dq_own=held["dq_same_rounding"])
+
+
+def own_line(errs: dict) -> str:
+    d = errs["dq_own"]
+    return (f"; dQ against its own rounding {d['rel']:.2e} of its largest entry (tol "
+            f"{d['effective_rel']:.2e}, {d['ratio']:.3f} of it)")
 
 
 def flash_phase(dev, inputs=None):
@@ -884,25 +877,6 @@ def tail_phase(args, ptxas):
     return rows
 
 
-def flash_bwd_errors(what, got, ref, lib):
-    """Each of K1's dQ, dK, dV (`got`) against the float32 plain backward
-    (`ref`), relative to its largest entry, beside SDPA's bf16 backward
-    (`lib`, in SDPA's (B, H, S, D) layout); raises unless each is within
-    twice SDPA's error plus FLASH_BWD_FLOOR."""
-    errs = {}
-    for name, a, l, r in zip(("dq", "dk", "dv"), got, lib, ref):
-        l = l.transpose(1, 2)
-        scale = r.abs().max().item()
-        errs[name] = dict(abs=(a.float() - r).abs().max().item(),
-                          rel=(a.float() - r).abs().max().item() / scale,
-                          sdpa_rel=(l.float() - r).abs().max().item() / scale)
-    bad = [n for n, e in errs.items()
-           if not e["rel"] <= 2 * e["sdpa_rel"] + FLASH_BWD_FLOOR]
-    if bad:
-        raise AssertionError(f"{what}: {bad} exceed the noise floor: {errs}")
-    return errs
-
-
 def flash_bwd_phase(dev):
     """K1's backward (one call launches its D pass, dK/dV and dQ kernels)
     against the float32 plain backward from the same q, k, v, dO and the
@@ -947,7 +921,7 @@ def flash_bwd_phase(dev):
         def library():
             return torch.autograd.grad(out_lib, xs, do_t, retain_graph=True)
 
-        errs = flash_bwd_errors(f"K1 backward {label}", got, plain(), library())
+        errs = flash_bwd_errors(got, plain(), library(), what=f"K1 backward {label}")
         lse_err = (lse - lse_ref).abs().max().item()
         if not lse_err < 1e-3:
             raise AssertionError(f"K1 forward's lse {label}: max abs err {lse_err}")
@@ -1130,7 +1104,8 @@ def flash_f32_phase(dev, shapes):
                 bad = [n for n, e in errs.items() if not e < F32_TOL]
                 rule = f"tol {F32_TOL}"
             else:
-                bwd_errs = flash_bwd_errors(f"K1 bf16 {label}", got, plain_bwd(), lib_bwd())
+                bwd_errs = flash_bwd_errors(got, plain_bwd(), lib_bwd(),
+                                            what=f"K1 bf16 {label}")
                 errs = {"out_abs": (o.float() - o_ref).abs().max().item(),
                         "lse_abs": (lse - lse_ref).abs().max().item()}
                 errs.update({n: e["rel"] for n, e in bwd_errs.items()})
@@ -1289,14 +1264,6 @@ def tiny_phase(dev, reset_counts, counts):
     return r, (q.detach(), k.detach(), v.detach())
 
 
-def grad_group(name):
-    """The parameter groups whose gradient norms plain-k1 compares."""
-    parts = name.split(".")
-    if parts[0] == "backbone" and parts[1] in ("enc_blocks", "dec_blocks"):
-        return ".".join(parts[:2])
-    return parts[0]
-
-
 def train_run(dev, cfg, B, V, want, reset_counts, counts):
     """The training phase at batch B x 8 frames and V targets; raises
     torch.cuda.OutOfMemoryError when it does not fit."""
@@ -1345,7 +1312,7 @@ def train_run(dev, cfg, B, V, want, reset_counts, counts):
             raise AssertionError(f"train step {i} launches {launches}, not {want}")
         logs = {k: float(v) for k, v in logs.items()}
         if i == 0:  # the plain reference of parallel's world-1 SP and TP steps
-            step0 = route_record(model, logs)
+            step0 = step_record(model, logs)
         nonfinite = int(step.nonfinite)
         if nonfinite or not all(math.isfinite(v) for v in logs.values()):
             raise AssertionError(f"train step {i}: logs {logs}, {nonfinite} "
@@ -1413,8 +1380,8 @@ def train_run(dev, cfg, B, V, want, reset_counts, counts):
     # K1's backward on step 0's inputs of the last and the first decoder
     # block, against the float32 plain backward and SDPA's, as in k1-bwd;
     # the backward runs the blocks in reverse: its first call is block 12
-    bwd_errs = {label: k1_bwd_held(f"K1 backward on the train step's inputs ({label})",
-                                   *inputs)["errors"]
+    bwd_errs = {label: own_rounding(k1_bwd_held(
+        *inputs, what=f"K1 backward on the train step's inputs ({label})"))
                 for label, inputs in (("block 12", seen[0]), ("block 1", seen[-1]))}
     del seen
     return dict(k1_bwd_on_step_inputs=bwd_errs, batch=B, targets=V, steps=steps,
@@ -1465,7 +1432,8 @@ def train_phase(dev, dec_depth, reset_counts, counts):
         phase("train", t0, f"K1 backward on step 0's own inputs (decoder {label}), "
               "relative errors: " + ", ".join(
                   f"{n} {e['rel']:.2e} (sdpa {e['sdpa_rel']:.2e}, tol "
-                  f"{2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})" for n, e in errs.items()))
+                  f"{2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})" for n, e in errs.items()
+                  if n != "dq_own") + own_line(errs))
     pk = r["plain_k1"]
     phase("train", t0, "K1 vs plain attention, one gradient pass of the whole loss "
           "at the same weights (after 5 steps) and batch: loss and gradient norms "
@@ -2641,17 +2609,17 @@ def train_mode_phase(dev, smi, reset_counts, counts, zero):
     # K1's backward on the first step's inputs (blocks 4 to 1), the k1-bwd rule
     bwd = {}
     for j, inputs in enumerate(seen):
-        bwd[f"block {dec_depth - j}"] = k1_bwd_held(
-            f"K1 backward on the train mode's inputs (block {dec_depth - j})",
-            *inputs)["errors"]
+        bwd[f"block {dec_depth - j}"] = own_rounding(k1_bwd_held(
+            *inputs,
+            what=f"K1 backward on the train mode's inputs (block {dec_depth - j})"))
     shape = tuple(seen[0][0].shape)
     del seen
     phase("train-mode", t0, f"K1 backward on step 1's own inputs, q {shape} bf16, "
           "relative errors: " + "; ".join(
               f"{label} " + ", ".join(f"{nm} {e['rel']:.2e} (tol "
                                       f"{2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})"
-                                      for nm, e in errs.items())
-              for label, errs in bwd.items()))
+                                      for nm, e in errs.items() if nm != "dq_own")
+              + own_line(errs) for label, errs in bwd.items()))
     # ---- the resume, bit for bit: the state saved at n/2, then the
     # unbroken run's own batches of the steps after it ----
     train_cfg, model, optimizer = tmain.build_all(cfg, dev)
@@ -3480,47 +3448,12 @@ def watched_train_step(make_step, watch: dict, last: int):
             watch["span_ms"].append(e0.elapsed_time(e1))
             if before is not None:
                 watch["update"] = update_record(optimizer, before, lr)
+                bad = update_gaps([watch["update"]])
+                if bad:
+                    raise AssertionError(f"the update at lr {lr}: groups {bad}")
             return logs
         return run
     return make
-
-
-def update_record(optimizer, before: dict, lr: float) -> dict:
-    """{lr multiplier: its parameters' update} of the AdamW `optimizer`'s
-    last step at learning rate `lr` from `before` ({name: the parameter on
-    the host before the step}): tensors, tensors that moved, and the
-    largest |update| / (lr * multiplier) beside its bound. AdamW's
-    normalized step m^/sqrt(v^) at count c is at most
-    sqrt(sum_i a_i^2 / w_i) sqrt(1 - b2^c) / (1 - b1^c) an entry
-    (Cauchy-Schwarz on the moments' weights a_i = (1 - b1) b1^(c-i),
-    w_i = (1 - b2) b2^(c-i); 1.0004 at count 2 of betas (0.9, 0.95)),
-    1 % more for a bfloat16 first moment; weight decay adds decay * |p|,
-    and float32 rounding the spacing at the group's largest |p|. Raises
-    unless every group moved and its largest ratio lies in [0.25, bound]:
-    the entries whose two gradients share a sign take at least 0.5 of it."""
-    b1, b2 = optimizer.cfg.betas
-    c = optimizer.count
-    adam = (math.sqrt(sum(((1 - b1) * b1 ** (c - i)) ** 2 / ((1 - b2) * b2 ** (c - i))
-                          for i in range(1, c + 1)))
-            * math.sqrt(1 - b2 ** c) / (1 - b1 ** c))
-    groups = {}
-    for n, p in optimizer.params.items():
-        m = optimizer.mult[n]
-        old = before[n].to(p.device)
-        step = (p.detach() - old).abs().max().item()
-        g = groups.setdefault(m, dict(tensors=0, moved=0, ratio=0.0, p_max=0.0))
-        g["tensors"] += 1
-        g["moved"] += step > 0
-        g["ratio"] = max(g["ratio"], step / (lr * m))
-        g["p_max"] = max(g["p_max"], old.abs().max().item())
-    for m, g in groups.items():
-        g["bound"] = (1.01 * adam + optimizer.cfg.weight_decay * g["p_max"]
-                      + float(np.spacing(np.float32(g["p_max"]))) / (lr * m))
-    bad = {m: g for m, g in groups.items()
-           if not (g["moved"] and 0.25 <= g["ratio"] <= g["bound"])}
-    if bad:
-        raise AssertionError(f"the update at lr {lr}: groups {bad}")
-    return dict(lr=lr, count=c, adam_bound=adam, groups=groups)
 
 
 def experiments_phase(dev, smi, reset_counts, counts, zero):
@@ -3643,13 +3576,13 @@ def experiments_phase(dev, smi, reset_counts, counts, zero):
         # filled), forward and backward, on the run's first backward's inputs
         q, k, v, o, lse, do = seen.pop()
         r["k1"] = flash_phase(dev, {name: [(q, k, v)]})[name]
-        r["k1_bwd"] = k1_bwd_held(f"K1 backward on {name}'s step inputs",
-                                  q, k, v, o, lse, do)["errors"]
+        r["k1_bwd"] = own_rounding(k1_bwd_held(q, k, v, o, lse, do,
+                                               what=f"K1 backward on {name}'s step inputs"))
         phase("experiments", t0, f"{name}: K1 on the step's own inputs, {r['k1']['shape']}: "
               f"forward max abs err {r['k1']['max_abs_err']:.3e} (tol {FLASH_TOL}); backward "
               "relative errors " + ", ".join(
                   f"{nm} {e['rel']:.2e} (tol {2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})"
-                  for nm, e in r["k1_bwd"].items()))
+                  for nm, e in r["k1_bwd"].items() if nm != "dq_own") + own_line(r["k1_bwd"]))
         del q, k, v, o, lse, do
         gc.collect()
         torch.cuda.empty_cache()
@@ -4017,13 +3950,13 @@ def distill_phase(dev, smi, reset_counts, counts, zero):
     # last q tile of 2 rows), forward and backward, on the first call's inputs
     q, k, v, o, lse, do = seen.pop()
     rec["k1"] = flash_phase(dev, {"distill": [(q, k, v)]})["distill"]
-    rec["k1_bwd"] = k1_bwd_held("K1 backward on the distill step's inputs",
-                                q, k, v, o, lse, do)["errors"]
+    rec["k1_bwd"] = own_rounding(k1_bwd_held(q, k, v, o, lse, do,
+                                             what="K1 backward on the distill step's inputs"))
     phase("distill", t0, f"K1 on the first step's own inputs, {rec['k1']['shape']}: forward "
           f"max abs err {rec['k1']['max_abs_err']:.3e} (tol {FLASH_TOL}); backward relative "
           "errors " + ", ".join(
               f"{nm} {e['rel']:.2e} (tol {2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})"
-              for nm, e in rec["k1_bwd"].items()))
+              for nm, e in rec["k1_bwd"].items() if nm != "dq_own") + own_line(rec["k1_bwd"]))
     del q, k, v, o, lse, do
     shutil.rmtree(out, ignore_errors=True)
     gc.collect()
@@ -4096,9 +4029,6 @@ def synthetic_pose_setup(dev):
 def step_gaps(got, ref):
     """Relative gaps of the loss, the gradient norm and each group's
     gradient norm; the largest parameter-sum gap, absolute."""
-    def rel(a, r):
-        return abs(a - r) / abs(r) if r else abs(a)
-
     gaps = {"loss": rel(got["loss"], ref["loss"]),
             "grad_norm": rel(got["grad_norm"], ref["grad_norm"]),
             "group_norms": max(rel(got["group_norms"][k], v)
@@ -4136,7 +4066,7 @@ def ddp_child(rank: int, root: str):
         t = time.perf_counter()
         logs = step(mine, DDP_STEP)
         torch.cuda.synchronize()
-        rec = route_record(model, logs, step)
+        rec = step_record(model, logs, step_fn=step)
         rec.update(ms=(time.perf_counter() - t) * 1e3, launches=launch_counts(),
                    backend=str(dist.get_backend()))
     finally:
@@ -4281,75 +4211,9 @@ def oracle_gaps(dev, smi):
     return rec
 
 
-def route_record(model, logs, step_fn=None, before=None):
-    """A step's loss and gradient norm, each parameter group's (grad_group)
-    gradient norm and parameter checksum (float64 sums), whole on every
-    rank: the squares and sums of the parameters that parallel/tp.py or
-    ep.py sliced (marked by a GradSplit) are summed over the mark's `norm`
-    group. `before` ({name: host copy}) adds each group's update mass (the
-    sum of |p - before|) and signed update sum. `replica_sums` holds the
-    unsliced leaves' sums alone (equal on every rank)."""
-    import torch.distributed as dist
-
-    from vicasplat_tpu_torch.training.optimizer import local
-
-    group = None
-    acc = {}  # group -> [unsliced, sliced] x (sq, sum, mass, signed)
-    for name, p in model.named_parameters():
-        mark = getattr(p, "_grad_split", None)
-        group = mark.norm if mark is not None else group
-        a = acc.setdefault(grad_group(name), [[0.0] * 4, [0.0] * 4])[mark is not None]
-        w = local(p.detach()).double()
-        if p.grad is not None:
-            a[0] += float((local(p.grad).double() ** 2).sum())
-        a[1] += float(w.sum())
-        if before is not None:
-            d = w - before[name].to(p.device).double()
-            a[2] += float(d.abs().sum())
-            a[3] += float(d.sum())
-    keys = list(acc)
-    tot = torch.tensor([acc[k][1] for k in keys], dtype=torch.float64)
-    if group is not None and dist.get_world_size(group) > 1:
-        dist.all_reduce(tot, group=group)  # gloo: host tensors
-    tot = tot.tolist()
-    rec = {"loss": float(logs["loss"]), "grad_norm": float(logs["grad_norm"]),
-           "group_norms": {k: math.sqrt(acc[k][0][0] + t[0]) for k, t in zip(keys, tot)},
-           "param_sums": {k: acc[k][0][1] + t[1] for k, t in zip(keys, tot)},
-           "replica_sums": {k: acc[k][0][1] for k in keys},
-           "nonfinite": None if step_fn is None else int(step_fn.nonfinite)}
-    if before is not None:
-        rec["update_mass"] = {k: acc[k][0][2] + t[2] for k, t in zip(keys, tot)}
-        rec["update_sum"] = {k: acc[k][0][3] + t[3] for k, t in zip(keys, tot)}
-    return rec
-
-
-def host_copy(model) -> dict:
-    return {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
-
-
-def route_gaps(got, ref):
-    """Relative gaps of the loss, the gradient norm and each group's
-    gradient norm; with updates, each group's update mass and the largest
-    signed-sum gap relative to the mass."""
-    def rel(a, r):
-        return abs(a - r) / abs(r) if r else abs(a)
-
-    gaps = {"loss": rel(got["loss"], ref["loss"]),
-            "grad_norm": rel(got["grad_norm"], ref["grad_norm"]),
-            **{f"norm {k}": rel(got["group_norms"][k], v)
-               for k, v in ref["group_norms"].items()}}
-    if "update_mass" in ref:
-        gaps.update({f"mass {k}": rel(got["update_mass"][k], v)
-                     for k, v in ref["update_mass"].items()})
-        gaps["signed"] = max((abs(got["update_sum"][k] - v) / ref["update_mass"][k]
-                              for k, v in ref["update_sum"].items() if ref["update_mass"][k]),
-                             default=0.0)
-    return gaps
-
-
 def route_steps(dev, cfg, batch, model, step_fn, reset_counts, counts, want,
                 spy_k1=False, label="", steps=(0,), updates=False):
-    """Train steps at the global step indices `steps` on `batch`: each one's route_record (with its update when `updates`), host
+    """Train steps at the global step indices `steps` on `batch`: each one's step_record (with its update when `updates`), host
     ms and launches, held exactly to `want`; with spy_k1, the first K1
     backward call's inputs. Returns the records, the peak allocated GB and
     those inputs."""
@@ -4383,7 +4247,7 @@ def route_steps(dev, cfg, batch, model, step_fn, reset_counts, counts, want,
         launches = counts()
         if launches != want:
             raise AssertionError(f"{label} step {i} launches {launches}, not {want}")
-        rec = route_record(model, logs, step_fn, before)
+        rec = step_record(model, logs, before=before, step_fn=step_fn)
         if rec["nonfinite"] or not all(math.isfinite(v) for v in (rec["loss"],
                                                                   rec["grad_norm"])):
             raise AssertionError(f"{label} step {i}: {rec}")
@@ -4392,27 +4256,6 @@ def route_steps(dev, cfg, batch, model, step_fn, reset_counts, counts, want,
         del before
     peak = torch.cuda.max_memory_allocated() / 1e9
     return recs, peak, seen
-
-
-def k1_bwd_held(what, q, k, v, o, lse, do):
-    """K1's backward on a step's own inputs against the float32 plain
-    backward, beside SDPA's (the k1-bwd rule)."""
-    import torch.nn.functional as F
-
-    from vicasplat_tpu_torch.kernels.flash_attn import (
-        attention_backward_reference,
-        attention_lse_reference,
-        attention_reference,
-        flash_attention_backward,
-    )
-
-    xs = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
-    lib = torch.autograd.grad(F.scaled_dot_product_attention(*xs), xs, do.transpose(1, 2))
-    ref = attention_backward_reference(q, k, v, attention_reference(q, k, v),
-                                       attention_lse_reference(q, k), do)
-    errs = flash_bwd_errors(what, flash_attention_backward(q, k, v, o, lse, do), ref, lib)
-    return dict(shape=f"q {tuple(q.shape)}, k/v {tuple(k.shape)} {str(q.dtype)[6:]}",
-                errors=errs)
 
 
 # the world-2 training routes' jobs: the witness (light, at once, beside
@@ -4500,7 +4343,7 @@ def route_run(job: dict, dev, reset_counts, counts, zero, world2: bool) -> dict:
     if spy:
         if not seen:
             raise AssertionError("the SP step's K1 backward was never called")
-        r["k1_bwd"] = k1_bwd_held("K1 backward on the SP step's inputs", *seen[0])
+        r["k1_bwd"] = k1_bwd_held(*seen[0], what="K1 backward on the SP step's inputs")
     return r
 
 
@@ -4596,7 +4439,7 @@ def world1_sp_tp(dev, batch, reset_counts, counts, zero):
     """Step 0 of the flagship on `batch` under SP (make_mesh_sp(1, 1)), then
     under TP (shard_params_tp on make_mesh_2d(1, 1)), on one model from
     seed 0 (step 0's lr is 0, so TP starts from the same weights), in this
-    process's world-1 group: {route: (route_record, peak GB)}."""
+    process's world-1 group: {route: (step_record, peak GB)}."""
     from vicasplat_tpu_torch import parallel as par
     from vicasplat_tpu_torch.models import init_vicasplat
     from vicasplat_tpu_torch.training import AdamW, make_train_step
@@ -4848,7 +4691,7 @@ def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, train, proc
         # from the same seeded weights
         train_cfg, m, opt, batch = synthetic_pose_setup(dev)
         step = make_train_step(train_cfg, m, opt)
-        plain = route_record(m, step(batch, DDP_STEP), step)
+        plain = step_record(m, step(batch, DDP_STEP), step_fn=step)
         for name in ("ddp", "fsdp"):
             del m, opt, step
             gc.collect()
@@ -4858,7 +4701,7 @@ def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, train, proc
                 step = make_train_step(train_cfg, m, AdamW(m, train_cfg.optimizer))
             else:
                 step = make_train_step(train_cfg, m, opt, ddp_group=mesh.get_group())
-            routes[name] = step_gaps(route_record(m, step(batch, DDP_STEP), step), plain)
+            routes[name] = step_gaps(step_record(m, step(batch, DDP_STEP), step_fn=step), plain)
         del m, opt, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -4986,7 +4829,7 @@ def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, train, proc
         train_cfg, m, opt, batch = synthetic_pose_setup(dev)
         step = make_train_step(dataclasses.replace(train_cfg, accumulate_steps=A),
                                m, opt)
-        ddp_refs[A] = route_record(m, step(batch, DDP_STEP), step)
+        ddp_refs[A] = step_record(m, step(batch, DDP_STEP), step_fn=step)
         del m, opt, step
         gc.collect()
     rec["oracle"] = oracle_gaps(dev, smi)
@@ -5070,6 +4913,7 @@ def _parallel_phase(dev, smi, plain_tol, reset_counts, counts, zero, train, proc
               f"rank {r} " + ", ".join(f"{nm} {e['rel']:.2e} (tol "
                                        f"{2 * e['sdpa_rel'] + FLASH_BWD_FLOOR:.2e})"
                                        for nm, e in k["errors"].items())
+              + f", dQ {k['dq_same_rounding']['ratio']:.3f} of its own rounding's bound"
               for r, k in enumerate(k1b)))
     shutil.rmtree(route_root, ignore_errors=True)
     rec["memory"] = report

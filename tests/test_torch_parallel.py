@@ -9,7 +9,8 @@ workers cannot collide) run tests/torch_parallel_worker.py: every rank runs
 every route of its world size and saves its results; the tests here compare
 them. World 2: shard_batch and replicate, DDP against the single-process
 step (with and without accumulation), FSDP2's sharding rule and step, the
-view-sharded render, the GPipe pipeline, EP on a (1, 2) mesh. World 4:
+view-sharded render, the GPipe pipeline (its replicas with and without the
+stages' average), EP on a (1, 2) mesh. World 4:
 tensor and sequence parallelism on (2, 2) meshes and EP on a (2, 2)
 data x expert mesh. Both: two train steps under SP, TP and EP
 (run_sp_tp_ep_steps) against the single-process step, and the SP step
@@ -358,6 +359,23 @@ def test_pipeline_train_step_equals_single_process(runs):
     for out in res[2]:
         _same_step(out["pp_step"], grad_tol=WHOLE_GRAD_TOL,
                    norm_tol=WHOLE_GRAD_TOL, params=False)
+
+
+def test_pipeline_replicas_averaged_over_stages(runs):
+    """Each GPipe stage computes its own copy of the rest of the step; its
+    gradients are averaged over the stages, so the replicas stay equal
+    when the copies differ (a change planted in one stage's gradient of
+    center_head.proj.weight): every replicated parameter equal on both
+    stages after the step, and without the average the planted one apart."""
+    res, _, _ = runs
+    a, b = res[2]
+    assert a["pp_replicas_True"] and set(a["pp_replicas_True"]) == set(b["pp_replicas_True"])
+    assert not any("_blocks." in n for n in a["pp_replicas_True"])
+    apart = {avg: [n for n, x in a[f"pp_replicas_{avg}"].items()
+                   if not np.array_equal(x, b[f"pp_replicas_{avg}"][n])]
+             for avg in (True, False)}
+    assert apart[True] == []
+    assert "center_head.proj.weight" in apart[False], apart
 
 
 def test_pipeline_scan_matches_serial_loop(runs):

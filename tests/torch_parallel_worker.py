@@ -230,6 +230,37 @@ def run_pipeline_step(inp, out, world, rank):
     out["pp_step_held"] = sorted(got["params"])
 
 
+def run_pipeline_replicas(inp, out, world, rank):
+    """GPipe's replicated rest averaged over the stages (training/step.py
+    _average_replicas): a change planted in one stage's gradient of a
+    replicated parameter (on the card the render's atomics leave such a
+    change, a rounding) moves that stage's update alone without the
+    average, and no stage's with it. The parameters that every stage
+    holds, after one step each way."""
+    from contextlib import nullcontext
+    from unittest import mock
+
+    from vicasplat_tpu_torch.training import step as step_module
+
+    mesh = par.make_mesh_pipe()
+    batch = train_batch(2)
+    for average in (True, False):
+        model = init_vicasplat(TINY_TRAIN.model, torch.Generator().manual_seed(0), "cpu")
+        par.shard_params_pp(mesh, model.backbone.enc_blocks)
+        par.shard_params_pp(mesh, model.backbone.dec_blocks)
+        model.center_head.proj.weight.register_hook(
+            lambda g: g + rank * 1e-2 * g.abs().max())
+        off = (nullcontext() if average else
+               mock.patch.object(step_module, "_average_replicas", lambda grads, group: None))
+        with off:
+            step = make_train_step(TINY_TRAIN, model, AdamW(model, TINY_TRAIN.optimizer),
+                                   pipeline_group=mesh.get_group(), pipeline_n_micro=2)
+            step(batch, 0)
+        out[f"pp_replicas_{average}"] = {
+            n: _np(p) for n, p in model.named_parameters()
+            if not p.is_meta and not getattr(p, "_pipeline_block", False)}
+
+
 # tests/test_torch_train.py's toy synthetic_pose train mode
 TRAIN_MODE = ["+experiment=synthetic_pose", "mode=train",
               "encoder.backbone.img_size=32", "encoder.backbone.enc_embed_dim=64",
@@ -478,7 +509,8 @@ def main(rank, world, root):
         inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
         inp["root"] = root
         routes = ([run_data_parallel, run_view_sharded, run_pipeline,
-                   run_pipeline_step, lambda *a: run_ep(*a, (1, 2)), run_train_mode,
+                   run_pipeline_step, run_pipeline_replicas,
+                   lambda *a: run_ep(*a, (1, 2)), run_train_mode,
                    run_sp_tp_ep_steps]
                   if world == 2 else
                   [run_tp_sp, lambda *a: run_ep(*a, (2, 2)), run_sp_tp_ep_steps])

@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 // Compare-exchange of a and b (a at the lower index): the lower keeps the
@@ -162,16 +164,12 @@ bitonic_topk_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ o
 template <int V>
 int launch(const void* words, void* out, int rows, int m, int keep,
            cudaStream_t stream) {
-  static bool smem_set = false;
+  static smem_limit::Set smem_set;
   const int threads = m / V < 32 ? 32 : m / V;
   const size_t smem = m > 32 * V ? static_cast<size_t>(m) * sizeof(uint32_t) : 0;
-  if (!smem_set) {  // once per process: the most a row of 227 KB may need
-    cudaError_t err = cudaFuncSetAttribute(
-        bitonic_topk_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        227 * 1024);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
-  }
+  // once per device: the most a row of 227 KB may need
+  const cudaError_t err = smem_limit::allow(bitonic_topk_kernel<V>, 227 * 1024, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
   bitonic_topk_kernel<V><<<rows, threads, smem, stream>>>(
       static_cast<const uint32_t*>(words), static_cast<uint32_t*>(out), m, keep);
   return static_cast<int>(cudaGetLastError());

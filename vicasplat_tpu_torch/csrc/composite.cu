@@ -56,6 +56,7 @@
 //   ragged edge tiles that lie outside the image are skipped.
 
 #include "hopper.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -254,7 +255,7 @@ extern "C" int vs_composite_smem_bytes(int chunk) {
 // payload: (tiles_y * tiles_x, K, 16) float32, contiguous, 16-byte aligned,
 // K a multiple of chunk; bg (3,), rgb (H, W, 3), depth and alpha (H, W)
 // float32, all on the card. Launches on `stream` and returns
-// cudaGetLastError(). The shared-memory attribute is set once per process
+// cudaGetLastError(). The shared-memory attribute is set once per device
 // for the largest size asked so far.
 extern "C" int vs_composite(const void* payload, int num_tiles, int K,
                             int chunk, int tile_px, int tiles_x, int H, int W,
@@ -263,13 +264,11 @@ extern "C" int vs_composite(const void* payload, int num_tiles, int K,
   const int smem = vs_composite_smem_bytes(chunk);
   const int threads = (tile_px * tile_px + 31) / 32 * 32;
   auto kernel = threads <= 256 ? composite_kernel<256> : composite_kernel<1024>;
-  static int smem_set[2] = {48 * 1024, 48 * 1024};  // the default any kernel may use
-  int& set = smem_set[threads <= 256 ? 0 : 1];
-  if (smem > set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static smem_limit::Set smem_set[2];
+  if (smem > 48 * 1024) {  // the default any kernel may use
+    const cudaError_t err =
+        smem_limit::allow(kernel, smem, smem_set[threads <= 256 ? 0 : 1]);
     if (err != cudaSuccess) return static_cast<int>(err);
-    set = smem;
   }
   kernel<<<num_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(payload), K, chunk, tile_px, tiles_x, H, W,

@@ -72,6 +72,7 @@
 // without the products.
 
 #include "hopper.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -473,12 +474,10 @@ int launch(const CUtensorMap& ma, const CUtensorMap& mm, const CUtensorMap& mw1,
            const CUtensorMap& mw2, const float* b1, const float* b2,
            __nv_bfloat16* out, Shape sh, cudaStream_t stream) {
   auto kernel = dpt_tail_kernel<FS, kMulti, N2>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  static smem_limit::Set smem_set;
+  {
+    const cudaError_t err = smem_limit::allow(kernel, kMaxSmem, smem_set);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
   }
   // as many ring stages as shared memory holds, 2 to kMaxStages
   sh.stages = kMaxStages;
@@ -497,18 +496,22 @@ int launch(const CUtensorMap& ma, const CUtensorMap& mm, const CUtensorMap& mw1,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // one cluster for every pair of SMs that can hold one, or fewer
-  static int cached_smem = -1, cached_clusters = 0;
-  if (cached_smem != smem) {
+  // one cluster for every pair of SMs that can hold one, or fewer; the
+  // count is the device's, kept for each device and size
+  static int cached_smem[smem_limit::kMaxDevices], cached_clusters[smem_limit::kMaxDevices];
+  const int slot = smem_limit::device_slot();
+  int max_clusters = slot >= 0 && cached_smem[slot] == smem ? cached_clusters[slot] : 0;
+  if (max_clusters == 0) {
     cfg.gridDim = dim3(kCluster * sh.pairs);
-    int n = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&max_clusters, kernel, &cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    cached_smem = smem;
-    cached_clusters = n;
+    if (max_clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (slot >= 0) {
+      cached_smem[slot] = smem;
+      cached_clusters[slot] = max_clusters;
+    }
   }
-  const int clusters = sh.pairs < cached_clusters ? sh.pairs : cached_clusters;
+  const int clusters = sh.pairs < max_clusters ? sh.pairs : max_clusters;
   cfg.gridDim = dim3(kCluster * clusters);
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, kernel, ma, mm, mw1, mw2, b1, b2, out, sh);
@@ -602,13 +605,9 @@ extern "C" int vs_dpt_tail_shift_probe(const void* x, const void* w, void* out,
   if (rc == 0) rc = encode_bf16_map(&mw, w, 2, w_dims, strides, w_box);
   if (rc != 0) return kTensorMapError + rc;
   const int smem = kRowSlot + 64 * 128 + 64 + 1024;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        shift_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  static smem_limit::Set smem_set;
+  const cudaError_t err = smem_limit::allow(shift_probe_kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
   shift_probe_kernel<<<8, 128, smem, static_cast<cudaStream_t>(stream)>>>(
       mx, mw, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

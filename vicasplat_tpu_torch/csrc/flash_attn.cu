@@ -52,6 +52,7 @@
 // lse pointer skips the store.
 
 #include "hopper.cuh"
+#include "smem_limit.cuh"
 
 #include <math.h>
 
@@ -238,14 +239,9 @@ extern "C" int vs_flash_attn_fwd(const void* q, const void* k, const void* v,
   if (rc == 0) rc = encode_bshd_map(&mk, k, B, Sk, H, kBN);
   if (rc == 0) rc = encode_bshd_map(&mv, v, B, Sk, H, kBN);
   if (rc != 0) return kTensorMapError + rc;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  static smem_limit::Set smem_set;
+  const cudaError_t err = smem_limit::allow(flash_fwd_kernel, kSmemBytes, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBM - 1) / kBM, H, B);
   const float scale_log2 = 1.4426950408889634f * 0.125f;  // log2(e)/sqrt(64)
   flash_fwd_kernel<<<grid, kThreads, kSmemBytes,

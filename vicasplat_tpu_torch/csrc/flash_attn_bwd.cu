@@ -57,6 +57,7 @@
 // level with SDPA's; errors equal to SDPA's to three digits.
 
 #include "hopper.cuh"
+#include "smem_limit.cuh"
 
 #include <math.h>
 
@@ -392,17 +393,11 @@ extern "C" int vs_flash_attn_bwd(const void* q, const void* k, const void* v,
   if (rc == 0) rc = encode_bshd_map(&mv, v, B, Sk, H, kBT);
   if (rc == 0) rc = encode_bshd_map(&mdo, dout, B, Sq, H, kBT);
   if (rc != 0) return kTensorMapError + rc;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmemBytes);
+  static smem_limit::Set set_dkdv, set_dq;
+  {
+    cudaError_t err = smem_limit::allow(flash_bwd_dkdv_kernel, kSmemBytes, set_dkdv);
+    if (err == cudaSuccess) err = smem_limit::allow(flash_bwd_dq_kernel, kSmemBytes, set_dq);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
   }
   const int Sq_pad = (Sq + kBT - 1) / kBT * kBT;
   float* lse2 = static_cast<float*>(scratch);

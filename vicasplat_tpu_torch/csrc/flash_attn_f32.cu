@@ -79,6 +79,7 @@
 // (diagnostics/k1_f32_variants.py).
 
 #include "hopper.cuh"
+#include "smem_limit.cuh"
 
 #include <math.h>
 
@@ -722,22 +723,12 @@ f32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  scale, t);
 }
 
-// Raise a kernel's dynamic shared memory limit to `bytes`, once.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return err;
-}
-
 template <int DP>
 int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
         int B, int Sq, int Sk, int H, int D, cudaStream_t st) {
   using P = Plan<DP, kFwd>;
-  static bool done = false;
-  const cudaError_t err = allow_smem(f32_fwd_kernel<DP>, P::smem, done);
+  static smem_limit::Set done;
+  const cudaError_t err = smem_limit::allow(f32_fwd_kernel<DP>, P::smem, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   f32_fwd_kernel<DP><<<dim3((Sq + kOwn - 1) / kOwn, H, B), kThreads, P::smem, st>>>(
       q, k, v, o, lse, Sq, Sk, H, D, kLog2e / sqrtf((float)D));
@@ -748,10 +739,11 @@ template <int DP>
 int bwd(const float* q, const float* k, const float* v, const float* o,
         const float* dout, const float* lse, float* delta, float* dq, float* dk,
         float* dv, int B, int Sq, int Sk, int H, int D, cudaStream_t st) {
-  static bool done_dkdv = false, done_dq = false;
-  cudaError_t err = allow_smem(f32_bwd_dkdv_kernel<DP>, Plan<DP, kDkdv>::smem, done_dkdv);
+  static smem_limit::Set done_dkdv, done_dq;
+  cudaError_t err =
+      smem_limit::allow(f32_bwd_dkdv_kernel<DP>, Plan<DP, kDkdv>::smem, done_dkdv);
   if (err == cudaSuccess)
-    err = allow_smem(f32_bwd_dq_kernel<DP>, Plan<DP, kDq>::smem, done_dq);
+    err = smem_limit::allow(f32_bwd_dq_kernel<DP>, Plan<DP, kDq>::smem, done_dq);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = 1.f / sqrtf((float)D);
   const long long rows = (long long)B * Sq * H;
@@ -772,26 +764,26 @@ int bwd(const float* q, const float* k, const float* v, const float* o,
 
 template <int DP>
 int plan(int kernel, int* smem, int* slots, int* blocks) {
-  static bool done[3] = {false, false, false};
+  static smem_limit::Set done[3];
   cudaError_t err;
   if (kernel == kFwd) {
     *smem = Plan<DP, kFwd>::smem;
     *slots = Plan<DP, kFwd>::slots;
-    err = allow_smem(f32_fwd_kernel<DP>, *smem, done[0]);
+    err = smem_limit::allow(f32_fwd_kernel<DP>, *smem, done[0]);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, f32_fwd_kernel<DP>,
                                                           kThreads, *smem);
   } else if (kernel == kDkdv) {
     *smem = Plan<DP, kDkdv>::smem;
     *slots = Plan<DP, kDkdv>::slots;
-    err = allow_smem(f32_bwd_dkdv_kernel<DP>, *smem, done[1]);
+    err = smem_limit::allow(f32_bwd_dkdv_kernel<DP>, *smem, done[1]);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           blocks, f32_bwd_dkdv_kernel<DP>, kThreads, *smem);
   } else {
     *smem = Plan<DP, kDq>::smem;
     *slots = Plan<DP, kDq>::slots;
-    err = allow_smem(f32_bwd_dq_kernel<DP>, *smem, done[2]);
+    err = smem_limit::allow(f32_bwd_dq_kernel<DP>, *smem, done[2]);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, f32_bwd_dq_kernel<DP>,
                                                           kThreads, *smem);

@@ -34,6 +34,19 @@ def qnormalize(q: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     return q / (qnorm(q) + eps)
 
 
+def qidentity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    """The identity quaternion (0, 0, 0, 1), broadcast to (*shape, 4)."""
+    q = torch.zeros((*shape, 4), dtype=dtype, device=device)
+    q[..., 3] = 1.0
+    return q
+
+
+def qrotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by xyzw quaternions q (..., 4): q v q*."""
+    qv = torch.cat([v, torch.zeros_like(v[..., :1])], dim=-1)
+    return qmul(qmul(q, qv), qconj(q))[..., :3]
+
+
 def quat_to_matrix(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """xyzw quaternion (not assumed unit) -> 3x3 rotation, 2/(|q|^2+eps)."""
     i, j, k, r = q.unbind(-1)

@@ -75,10 +75,21 @@ def update_pose(cam_trans_delta: torch.Tensor, cam_rot_delta: torch.Tensor,
     return rigid_inverse(se3_exp(tau) @ rigid_inverse(extrinsics))
 
 
+def camera_normalization(pivot_pose: torch.Tensor, poses: torch.Tensor) -> torch.Tensor:
+    """Every c2w pose relative to the pivot (first-context) pose:
+    pivot^-1 @ poses."""
+    return torch.linalg.inv(pivot_pose) @ poses
+
+
 def camera_matrix_from_dq_array(dq_array: torch.Tensor,
                                 normalize: bool = False) -> torch.Tensor:
     return dqlib.homogeneous_matrix(
         dqlib.from_dq_array(dq_array, normalize=normalize))
+
+
+def camera_matrix_from_qt_array(qt_array: torch.Tensor) -> torch.Tensor:
+    """(..., 7) [xyzw quaternion, translation] -> (..., 4, 4) transform."""
+    return dqlib.homogeneous_matrix(dqlib.from_quat_pose(qt_array))
 
 
 def camera_dq_array_from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -96,3 +107,48 @@ def intrinsics_from_fov(fov: torch.Tensor) -> torch.Tensor:
     K = torch.stack([fx, zero, 0.5 * one, zero, fy, 0.5 * one, zero, zero, one],
                     dim=-1)
     return K.unflatten(-1, (3, 3))
+
+
+def pose_error_angles(pred: torch.Tensor, gt: torch.Tensor):
+    """(rotation geodesic error, angle between the translation directions),
+    both in degrees, of (..., 4, 4) poses."""
+    R_err = pred[..., :3, :3] @ gt[..., :3, :3].transpose(-1, -2)
+    trace = R_err.diagonal(dim1=-2, dim2=-1).sum(-1)
+    rot_deg = torch.rad2deg(torch.arccos(((trace - 1.0) / 2.0).clamp(-1.0, 1.0)))
+    tp, tg = pred[..., :3, 3], gt[..., :3, 3]
+    denom = torch.linalg.vector_norm(tp, dim=-1) * torch.linalg.vector_norm(tg, dim=-1)
+    cos_t = ((tp * tg).sum(-1) / denom.clamp(min=1e-10)).clamp(-1.0, 1.0)
+    return rot_deg, torch.rad2deg(torch.arccos(cos_t))
+
+
+def get_pnp_pose(pts3d, opacity, intrinsics, h: int, w: int,
+                 opacity_threshold: float = 0.3):
+    """The camera's c2w pose (4, 4) numpy, by OpenCV's PnP-RANSAC (SQPnP)
+    on the host, from a point map pts3d (H, W, 3) of world points at the
+    pixels whose opacity (H, W) is above the threshold; intrinsics
+    normalized (3, 3). Tensors or arrays. Raises RuntimeError when RANSAC
+    finds no pose."""
+    import cv2
+    import numpy as np
+
+    def host(x, dtype):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, dtype)
+
+    pts3d = host(pts3d, np.float32)
+    opacity = host(opacity, np.float32)
+    K = host(intrinsics, np.float64).copy()
+    K[0, :] *= w
+    K[1, :] *= h
+    pixels = np.mgrid[:w, :h].T.astype(np.float32)
+    mask = opacity > opacity_threshold
+    success, rvec, tvec, _ = cv2.solvePnPRansac(
+        pts3d[mask], pixels[mask], K, None, iterationsCount=100,
+        reprojectionError=5, flags=cv2.SOLVEPNP_SQPNP)
+    if not success:
+        raise RuntimeError("PnP-RANSAC failed")
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, :3] = cv2.Rodrigues(rvec)[0]
+    w2c[:3, 3] = tvec.reshape(3)
+    return np.linalg.inv(w2c)

@@ -9,7 +9,10 @@ AdamW's two moments (the first in OptimizerConfig.moment_dtype) under
 - fsdp8: the same with FSDP2 (`mesh.shard_params_fsdp`'s rule): each leaf
   of at least 2**16 entries split 8 ways along a dimension 8 divides;
 - pp4xdp2: 4 pipeline stages x 2-way data: the encoder and decoder blocks
-  split 4 ways (`pp.shard_params_pp`), the rest replicated.
+  split 4 ways (`pp.shard_params_pp`), the rest replicated;
+- dp4, fsdp4, pp4: the same on the four cards of one host (the layouts of
+  `python -m vicasplat_tpu_torch.multichip`). Any dp<N>, fsdp<N> or
+  pp<S>[xdp<D>] is reckoned.
 Activations are not reckoned: they depend on the schedule. On a card,
 `measure_step_peak` runs the world-1 flagship step and reads
 `torch.cuda.max_memory_allocated`, which holds state and activations, to
@@ -23,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import time
 from typing import Optional
 
@@ -30,6 +34,7 @@ import torch
 
 OUT_PATH = "outputs/multichip_memory_torch/flagship_memory.json"
 BLOCK_STACKS = ("enc_blocks", "dec_blocks")
+CONFIGS = ("dp8", "fsdp8", "pp4xdp2", "dp4", "fsdp4", "pp4")
 
 
 def flagship_train_config(moe_experts: int = 0):
@@ -52,7 +57,7 @@ def device_bytes() -> Optional[int]:
     return int(torch.cuda.get_device_properties(0).total_memory)
 
 
-def reckon(cfg=None, configs=("dp8", "fsdp8", "pp4xdp2")) -> dict:
+def reckon(cfg=None, configs=CONFIGS) -> dict:
     """Per-rank bytes of parameters, gradients and AdamW moments."""
     from ..models.vicasplat import VicaSplat
     from .mesh import fsdp_placement
@@ -66,19 +71,22 @@ def reckon(cfg=None, configs=("dp8", "fsdp8", "pp4xdp2")) -> dict:
     n_params = sum(n for _, _, n in leaves)
     rows = {}
     for name in configs:
-        if name == "dp8":
-            share = {leaf: 1.0 for leaf, _, _ in leaves}
-            mesh = {"data": 8}
-        elif name == "fsdp8":
-            share = {leaf: 1.0 if fsdp_placement(shape, 8) is None else 1 / 8
-                     for leaf, shape, _ in leaves}
-            mesh = {"data": 8}
-        elif name == "pp4xdp2":
-            share = {leaf: 0.25 if leaf.split(".")[1] in BLOCK_STACKS else 1.0
-                     for leaf, _, _ in leaves}
-            mesh = {"pipe": 4, "data": 2}
-        else:
+        m = re.fullmatch(r"(dp|fsdp)(\d+)|pp(\d+)(?:xdp(\d+))?", name)
+        if m is None:
             raise ValueError(name)
+        if m.group(1) == "dp":
+            share = {leaf: 1.0 for leaf, _, _ in leaves}
+            mesh = {"data": int(m.group(2))}
+        elif m.group(1) == "fsdp":
+            n = int(m.group(2))
+            share = {leaf: 1.0 if fsdp_placement(shape, n) is None else 1 / n
+                     for leaf, shape, _ in leaves}
+            mesh = {"data": n}
+        else:
+            S = int(m.group(3))
+            share = {leaf: 1 / S if leaf.split(".")[1] in BLOCK_STACKS else 1.0
+                     for leaf, _, _ in leaves}
+            mesh = {"pipe": S, "data": int(m.group(4) or 1)}
         elems = sum(n * share[leaf] for leaf, _, n in leaves)
         row = {"mesh": mesh,
                "param_bytes": int(elems * 4),
@@ -134,7 +142,7 @@ def measure_step_peak(device="cuda", batch: int = 1, n_ctx: int = 8,
 
 
 def flagship_memory_proof(out_path: str = OUT_PATH, measured: Optional[dict] = None,
-                          configs=("dp8", "fsdp8", "pp4xdp2")) -> dict:
+                          configs=CONFIGS) -> dict:
     report = reckon(configs=configs)
     report["device_bytes"] = device_bytes()
     report["note"] = ("state bytes per rank reckoned on the meta device "

@@ -186,6 +186,17 @@ def _in_block_stack(p) -> bool:
     return getattr(p, "_pipeline_block", False)
 
 
+def _average_replicas(grads: list, group) -> None:
+    """The gradients of the parameters that every pipeline stage holds (the
+    rest of the step: heads, render, losses), averaged over the stages in
+    place. Each stage computes its own copy of them, and the render's
+    atomics leave those copies a rounding apart on the card: unaveraged,
+    the replicas would drift apart."""
+    import torch.distributed as dist
+
+    _all_reduce_div(grads, group, dist.get_world_size(group))
+
+
 # the largest flat buffer of one all-reduce in the step's reduction (gloo
 # moves a CUDA tensor through the host, one call per bucket)
 BUCKET_BYTES = 1 << 28
@@ -251,6 +262,9 @@ def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
     - pipeline_group (pipeline_n_micro): the backbone's stacks as a GPipe
       pipeline (parallel/pp.py; shard_params_pp on the model's stacks);
       each stage updates its own blocks, the clip takes the norm over all.
+      Every stage runs its own copy of the rest of the step, whose
+      gradients the render's atomics leave a rounding apart: they are
+      averaged over the stages, so that the replicas stay equal.
     - sp_mesh: sequence parallelism on a ("data", "seq") mesh (JAX's
       make_train_step(sp_mesh=...); parallel/sp.py). Each rank passes its
       "data" slice and computes its "data" row's loss; every gradient is
@@ -339,12 +353,23 @@ def make_train_step(cfg: TrainConfig, model: nn.Module, optimizer: AdamW,
         index = {id(p): i for i, p in enumerate(params)}
         for ps, group, divisor in reduce:
             _all_reduce_div([local(grads[index[id(p)]]) for p in ps], group, divisor)
+        if pipeline_group is not None:  # the replicated rest (marked by the forward)
+            _average_replicas([grads[index[id(p)]] for p in params
+                               if not _in_block_stack(p)], pipeline_group)
         for g in grads:  # the NaN guard, on each rank's own shard
             gl = local(g)
             f = torch.isfinite(gl)
             train_step.nonfinite += (~f).sum()
             gl.copy_(torch.where(f, gl, torch.zeros_like(gl)))
-        logs = {k: average(v.detach(), reduce_group) for k, v in logs.items()}
+        logs = {k: v.detach() for k, v in logs.items()}
+        if "psnr" in logs and reduce_group is not None \
+                and dist.get_world_size(reduce_group) > 1:
+            # the PSNR of the batch's MSE, as JAX's data mesh logs it, not
+            # the mean of the ranks' PSNRs: averaged through the MSE
+            mse = average(10.0 ** (-0.1 * logs["psnr"]), reduce_group)
+            logs["psnr"] = -10.0 * torch.log10(mse)
+        logs = {k: v if k == "psnr" else average(v, reduce_group)
+                for k, v in logs.items()}
         return average(loss.detach(), reduce_group), logs, grads
 
     def split(tree, A):
